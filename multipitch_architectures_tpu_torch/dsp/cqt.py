@@ -1,0 +1,212 @@
+"""Constant-Q transform.
+
+Counterpart of ``multipitch_architectures_tpu/dsp/cqt.py``, the same
+multirate scheme (Schörkhuber & Klapuri, as librosa.cqt):
+
+- complex constant-Q kernels are built for the TOP octave only;
+- octaves run top-down; between them a half-band FIR and 2:1 decimation
+  halve the sample rate and the hop, so the same kernels serve again;
+- each octave is framed (centered, reflect-padded) and multiplied by the
+  kernel bank ``[Re K | -Im K]``; the magnitude is scaled so that a unit
+  sinusoid at bin k peaks near sqrt(l_k)/2, ``l_k`` the full-rate filter
+  length (librosa's ``scale=True``).
+
+The plan (kernels, taps, geometry) is host-side numpy; each octave's
+framing, product and magnitude is :func:`..ops.cqt_octave.cqt_octave`,
+which runs the CUDA kernel for a signal on the card.
+"""
+
+import math
+from dataclasses import dataclass, field
+from functools import lru_cache
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..ops.cqt_octave import cqt_octave
+
+
+def _hann_periodic(n: int) -> np.ndarray:
+    """Periodic (fftbins=True) Hann window, as librosa's filter builder uses."""
+    return 0.5 - 0.5 * np.cos(2.0 * np.pi * np.arange(n) / n)
+
+
+def cqt_q(bins_per_octave: int, filter_scale: float = 1.0) -> float:
+    return filter_scale / (2.0 ** (1.0 / bins_per_octave) - 1.0)
+
+
+def _top_octave_kernels(fs: float, fmax_octave_low: float,
+                        bins_per_octave: int, filter_scale: float):
+    """Complex kernels for one octave [f_low, 2·f_low), centered in a
+    common power-of-two window. Returns (kernels (n_fft, bpo) complex128,
+    lengths (bpo,), n_fft)."""
+    q = cqt_q(bins_per_octave, filter_scale)
+    freqs = fmax_octave_low * 2.0 ** (np.arange(bins_per_octave)
+                                      / bins_per_octave)
+    lengths = q * fs / freqs
+    n_fft = int(2 ** math.ceil(math.log2(lengths.max())))
+    kernels = np.zeros((n_fft, bins_per_octave), dtype=np.complex128)
+    for k, (f, l) in enumerate(zip(freqs, lengths)):
+        ilen = int(np.ceil(l))
+        win = _hann_periodic(ilen)
+        t = np.arange(-(ilen // 2), ilen - ilen // 2)
+        phi = win * np.exp(2j * np.pi * f * t / fs)
+        phi /= np.sum(np.abs(phi))        # L1 norm (librosa norm=1)
+        start = n_fft // 2 - ilen // 2
+        kernels[start:start + ilen, k] = phi
+    return kernels, lengths, n_fft
+
+
+@lru_cache(maxsize=None)
+def _halfband_taps(num_taps: int = 127, beta: float = 8.0) -> np.ndarray:
+    """Linear-phase half-band low-pass (cutoff 0.25·fs) for 2:1 decimation."""
+    from scipy.signal import firwin
+
+    return firwin(num_taps, 0.5, window=("kaiser", beta)).astype(np.float64)
+
+
+def _bank(kernels: np.ndarray) -> np.ndarray:
+    """(n_fft, bpo) complex kernels -> (n_fft, 2·bpo) float32 [Re | -Im]
+    (the conjugate correlation as one real product)."""
+    return np.concatenate([kernels.real, -kernels.imag],
+                          axis=1).astype(np.float32)
+
+
+@dataclass(frozen=True, eq=False)
+class CqtPlan:
+    """CQT geometry with its kernel banks.
+
+    Multirate plans hold one bank (the top octave's) and the half-band
+    taps; exact plans hold one full-rate bank per octave, lowest first,
+    and no taps.
+    """
+
+    fs: float
+    hop: int
+    fmin: float
+    n_bins: int
+    bins_per_octave: int
+    filter_scale: float
+    exact: bool
+    n_octaves: int
+    krs: Tuple[np.ndarray, ...]
+    sqrt_lengths: Tuple[np.ndarray, ...]
+    n_ffts: Tuple[int, ...]
+    taps: Optional[np.ndarray]
+    _on_device: dict = field(default_factory=dict, repr=False)
+
+    @staticmethod
+    def create(fs, hop, fmin, n_bins, bins_per_octave, filter_scale=1.0,
+               exact=False):
+        """``exact=True`` builds per-octave full-rate kernel banks and
+        skips the decimation chain: the result matches the direct
+        constant-Q definition to float32 rounding instead of the
+        multirate scheme's kernel-reuse error, at the cost of full-rate
+        framing in every octave."""
+        n_octaves = int(math.ceil(n_bins / bins_per_octave))
+        if hop % (2 ** (n_octaves - 1)) != 0:
+            raise ValueError(
+                f"hop ({hop}) must be divisible by 2^(n_octaves-1) "
+                f"(= {2 ** (n_octaves - 1)})")
+        f_low_top = fmin * 2.0 ** (n_octaves - 1)
+        if f_low_top * 2.0 > fs / 2.0 * 1.01:
+            raise ValueError("top octave exceeds Nyquist")
+        if exact:
+            octaves = [_top_octave_kernels(fs, fmin * 2.0 ** j,
+                                           bins_per_octave, filter_scale)
+                       for j in range(n_octaves)]
+            taps = None
+        else:
+            octaves = [_top_octave_kernels(fs, f_low_top, bins_per_octave,
+                                           filter_scale)]
+            taps = _halfband_taps().astype(np.float32)
+        return CqtPlan(
+            fs, hop, fmin, n_bins, bins_per_octave, filter_scale, exact,
+            n_octaves,
+            krs=tuple(_bank(k) for k, _, _ in octaves),
+            sqrt_lengths=tuple(np.sqrt(l).astype(np.float32)
+                               for _, l, _ in octaves),
+            n_ffts=tuple(n for _, _, n in octaves),
+            taps=taps)
+
+    def tensors(self, device):
+        """(krs, sqrt_lengths, taps) as tensors on ``device``, copied there
+        once per plan and device."""
+        key = torch.device(device)
+        if key not in self._on_device:
+            def on(a):
+                return torch.as_tensor(a, device=key)
+
+            self._on_device[key] = (
+                tuple(map(on, self.krs)), tuple(map(on, self.sqrt_lengths)),
+                None if self.taps is None else on(self.taps))
+        return self._on_device[key]
+
+
+def _reflect_pad(y, pad):
+    """Symmetric reflect pad of a 1-D tensor that tolerates pad >= len(y)
+    by reflecting again, as ``jnp.pad(mode='reflect')`` applied
+    repeatedly; ``F.pad(mode='reflect')`` alone raises there."""
+    while pad > 0:
+        p = min(pad, y.shape[0] - 1)
+        y = F.pad(y.view(1, 1, -1), (p, p), mode="reflect").view(-1)
+        pad -= p
+    return y
+
+
+def _decimate2(y, taps):
+    """Half-band filter + 2:1 decimation (linear phase, 'same' alignment)
+    as one strided conv1d. The taps are reversed as in the JAX package;
+    they are symmetric, so correlation and convolution agree."""
+    yp = _reflect_pad(y, taps.shape[0] // 2)
+    out = F.conv1d(yp.view(1, 1, -1), taps.flip(0).view(1, 1, -1), stride=2)
+    return out.view(-1)[:(y.shape[0] + 1) // 2]
+
+
+def _octave(y, kr, n_fft, hop, n_frames, bpo):
+    """Reflect-pad by n_fft//2, then one octave's magnitudes (T, bpo)."""
+    return cqt_octave(_reflect_pad(y, n_fft // 2), kr, hop=hop, n_fft=n_fft,
+                      bpo=bpo, n_frames=n_frames)
+
+
+def cqt(y, plan: CqtPlan):
+    """Magnitude CQT of ``y`` (1-D float32 tensor) -> (n_bins, n_frames)
+    float32 on ``y``'s device, ``n_frames = len(y) // hop + 1`` (librosa's
+    centered convention)."""
+    if y.dim() != 1 or y.dtype != torch.float32:
+        raise ValueError(f"want a 1-D float32 signal, got {y.dtype} "
+                         f"{tuple(y.shape)}")
+    krs, sqls, taps = plan.tensors(y.device)
+    if plan.exact:
+        return _cqt_exact_impl(y, krs, sqls, hop=plan.hop,
+                               n_ffts=plan.n_ffts,
+                               bpo=plan.bins_per_octave, n_bins=plan.n_bins)
+    return _cqt_impl(y, krs[0], sqls[0], taps, hop=plan.hop,
+                     n_fft=plan.n_ffts[0], n_octaves=plan.n_octaves,
+                     bpo=plan.bins_per_octave, n_bins=plan.n_bins)
+
+
+def _cqt_exact_impl(y, krs, sqls, *, hop, n_ffts, bpo, n_bins):
+    """Exact CQT: per-octave full-rate banks, no decimation. Octave j is
+    bins [j·bpo, (j+1)·bpo) from fmin."""
+    n_frames = y.shape[0] // hop + 1
+    out = torch.cat([_octave(y, kr, n_fft, hop, n_frames, bpo) * sql
+                     for kr, sql, n_fft in zip(krs, sqls, n_ffts)], dim=1)
+    return out[:, -n_bins:].T                     # (n_bins, T)
+
+
+def _cqt_impl(y, kr, sqrt_lengths, taps, *, hop, n_fft, n_octaves, bpo,
+              n_bins):
+    n_frames = y.shape[0] // hop + 1
+    octaves = []
+    for k in range(n_octaves):
+        mag = _octave(y, kr, n_fft, hop, n_frames, bpo)
+        octaves.append(mag * (sqrt_lengths * np.sqrt(2.0 ** k)))
+        if k + 1 < n_octaves:
+            y = _decimate2(y, taps)
+            hop //= 2
+    # octave k covers bins [n_bins - (k+1)·bpo, n_bins - k·bpo)
+    out = torch.cat(octaves[::-1], dim=1)         # (T, n_octaves·bpo)
+    return out[:, -n_bins:].T                     # (n_bins, T)
