@@ -23,28 +23,40 @@ result on its own line:
    through ``hcqt`` and ``predict_framewise(batch_size=250, group=50)``;
    each output must be (T, 72), finite and within [0, 1], and a batch of
    windows must match the same model on the CPU (atol 1e-4);
-6. int8-kernel: the int8 GEMM against its exact plain version, bit for
-   bit, at the TPU probe's 4096^3 (timed beside ``torch._int_mm`` and a
-   bf16 matmul) and at the 21 quantized conv shapes of exp180e, each at
-   batch 2 and at every batch size the int8 serving phase gives it
-   (250, 150, 50 and the tails of 42, 31 and 23 windows); at batch 250
-   each conv is timed beside its bound and the float32 cuDNN conv of the
-   same shape;
+6. int8-kernel: the int8 GEMM's two epilogues against their exact plain
+   versions, bit for bit: the int32 sums at the TPU probe's 4096^3
+   (timed beside ``torch._int_mm`` and a bf16 matmul: does int8 beat
+   bf16 on this card?), and both the int32 sums and the fused
+   dequantize (random scales and bias) at the 21 quantized conv shapes
+   of exp180e, each at batch 2 and at every batch size the int8 serving
+   phase gives it (250, 150, 50 and the tails of 42, 31 and 23
+   windows; the fused entry's plain version is the plain int32 sums
+   through the plain dequantize); at batch 250 each conv's fused entry is
+   timed beside its host time per call, its bound, the first (mma.sync)
+   version's time and the float32 cuDNN conv of the same shape;
 7. int8-serving: the same model through ``predict_framewise_int8``
    (per-recording calibration on the first fused batch of 250) answers
-   30-s and 10-s requests: the calibration span must equal the card's
-   float32 protocol (1e-6), the rest must differ from it, and the int8
-   GEMM must launch once per quantized conv per int8 batch of the drain
-   (147). A gated 4-s request (``gate=1e-3``) prints its drift and
-   demotions. Then each quantized conv of the card's forward of a few
-   windows is fed again on the CPU, teacher-forced: its card input
-   through the same quantized conv on the CPU must give the same int8
-   operands, the same int32 sums and the dequantized output within 1e-6.
-   The free-running gap of the whole quantized model, card vs CPU, is
-   printed (bin flips cascade at full depth, see PERF.md).
+   30-s and 10-s requests, each with its peak device memory: the
+   calibration span must equal the card's float32 protocol (1e-6), the
+   rest must differ from it, and the fused int8 GEMM must launch once per
+   quantized conv per int8 batch of the drain (147). One int8 batch of
+   250 is split by CUDA events into the int8 GEMM, the quantize and
+   layout passes around it and the float32 rest; the 10-s int8 request
+   is profiled three times and the float32 one once (device idle share,
+   top kernels). A gated 4-s request
+   (``gate=1e-3``) prints its drift and demotions. Then each quantized
+   conv of the card's forward of a few windows is fed again on the CPU,
+   teacher-forced: its card input through the same quantized conv on
+   the CPU must give the same int8 operands; the int32 sums recomputed
+   from them by the kernel on the card and by the plain version on the
+   CPU must be equal; the card's fused output must equal the plain
+   dequantize of the card's own sums bit for bit, and the CPU's output
+   within 1e-6. The free-running gap of the whole quantized model, card
+   vs CPU, is printed (bin flips cascade at full depth, see PERF.md).
 
 Each path's kernel launch counts are reset just before its requests and
-read just after. The line before the last is a JSON object with each
+read just after. Each phase's seconds are printed at the end. The line
+before the last is a JSON object with each
 kernel's launches, error, times and bound; the last line is
 ``{"ok": true, "device": {...}}``. Any failing phase raises, and the
 script exits non-zero without that line.
@@ -82,6 +94,20 @@ PROBE = 4096                # the TPU probe's M = N = K
 # the card's published dense peaks (NVIDIA H100 SXM data sheet)
 INT8_OPS_PER_S, F32_FLOP_PER_S, BYTES_PER_S = 1979e12, 67e12, 3.35e12
 K1_FRAMES = 5069     # frames of the bench span: 117.701 s · 22050 // 512 + 1
+# ms of the first (mma.sync, int32-out) version of the int8 GEMM at batch
+# 250, per quantized conv of exp180e: NVIDIA H100 80GB HBM3 at 700 W
+# (PERF.md, section 6, the conv table)
+MMA_SYNC_CONV_MS = {
+    "inc.double_conv.0": 5.192, "inc.double_conv.4": 8.233,
+    "down1.1.double_conv.0": 2.903, "down1.1.double_conv.4": 5.088,
+    "down2.1.double_conv.0": 0.999, "down2.1.double_conv.4": 1.791,
+    "down3.1.double_conv.0": 0.404, "down3.1.double_conv.4": 0.657,
+    "down4.1.double_conv.0": 0.093, "down4.1.double_conv.4": 0.094,
+    "upconv1.double_conv.0": 0.491, "upconv1.double_conv.4": 0.180,
+    "upconv2.double_conv.0": 1.188, "upconv2.double_conv.4": 0.370,
+    "upconv3.double_conv.0": 3.665, "upconv3.double_conv.4": 1.413,
+    "upconv4.double_conv.0": 14.191, "upconv4.double_conv.4": 22.518,
+    "conv2.0": 3.294, "conv3.0": 1.328, "conv4.0": 0.081}
 # (n_fft, hops) of the serving HCQT's 21 octaves: bases 0.5, 3 and 5 have
 # 9, 6 and 6 octaves, the hop halving from 512 in each
 MAIN_PATH_OCTAVES = ([(512, HOP >> k) for k in range(9)]
@@ -157,6 +183,20 @@ def cuda_ms(fn, reps=20, warmup=3):
     return start.elapsed_time(end) / reps
 
 
+def host_ms(fn, reps=3):
+    """Host time of ``fn()`` in ms per call, without waiting for the card:
+    where it is as long as the device time, the host bounds the calls."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = (time.perf_counter() - t0) * 1e3 / reps
+    torch.cuda.synchronize()
+    return t
+
+
 def cuda_timed(fn):
     """(``fn()``, its device time in ms by CUDA events): one call."""
     import torch
@@ -213,7 +253,8 @@ def phase_build():
             with open(log) as f:
                 for line in f:
                     if ("registers" in line or "spill" in line
-                            or "entry function" in line):
+                            or "entry function" in line
+                            or "warning" in line.lower()):
                         print(f"[build] {name} ptxas: {line.strip()}")
 
 
@@ -435,15 +476,16 @@ def conv_inputs(model, dev):
 
 
 def phase_int8_kernel(dev, model):
-    """The int8 GEMM against its exact plain version, at the TPU probe's
-    shape and at every quantized conv of ``model`` at every batch size
-    that serving gives it; returns the kernels line's numbers, the times
-    taken at the probe shape."""
+    """The int8 GEMM's two epilogues against their exact plain versions,
+    at the TPU probe's shape and at every quantized conv of ``model`` at
+    every batch size that serving gives it; returns the kernels line's
+    numbers, the times taken at the probe shape."""
     import torch
     import torch.nn.functional as F
 
     from multipitch_architectures_tpu_torch.ops.int8_gemm import (
-        int8_conv2d, int8_conv2d_reference, int8_mm, int8_mm_reference)
+        dequantize_reference, int8_conv2d, int8_conv2d_dequant,
+        int8_conv2d_reference, int8_mm, int8_mm_reference)
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
     worst = 0.0
@@ -453,12 +495,14 @@ def phase_int8_kernel(dev, model):
                              dtype=torch.int8)
 
     def exact(got, want, what):
-        """Raises unless the kernel's sums equal the plain version's."""
+        """Raises unless the kernel's output equals the plain version's,
+        bit for bit."""
         nonlocal worst
-        err = (float((got - want).abs().max()) if got.shape == want.shape
+        err = (float((got.double() - want.double()).abs().max())
+               if got.shape == want.shape and got.dtype == want.dtype
                else float("inf"))
         worst = max(worst, err)
-        if err != 0.0:
+        if err != 0.0 or not torch.equal(got, want):
             raise AssertionError(f"{what}: the kernel differs from its plain "
                                  f"version by up to {err:g}")
 
@@ -476,47 +520,67 @@ def phase_int8_kernel(dev, model):
           f"{probe_bound[0]:.4f} ms by {probe_bound[1]}, plain (float64) "
           f"{plain_ms:.4f} ms, torch._int_mm {library_ms:.4f} ms "
           f"({ops / library_ms / 1e9:.1f} TOP/s), bf16 matmul {bf16_ms:.4f}"
-          f" ms ({ops / bf16_ms / 1e9:.1f} TFLOP/s)")
+          f" ms ({ops / bf16_ms / 1e9:.1f} TFLOP/s): int8 "
+          f"{'beats' if ms < bf16_ms else 'does not beat'} bf16")
     del a, b, ab, bb
 
     batches = [2] + main_path_batch_sizes()
     if batches[-1] != BATCH:
         raise AssertionError(f"serving's batch sizes {batches[1:]} do not "
                              f"end at {BATCH}")
-    total = dict(kernel=0.0, bound=0.0, plain=0.0, cudnn=0.0)
+    total = dict(kernel=0.0, before=0.0, bound=0.0, plain=0.0, cudnn=0.0)
     convs = conv_inputs(model, dev)
     for name, conv, (c, h, w) in convs:
         (kh, kw), cout = conv.kernel_size, conv.out_channels
         args = (conv.stride, conv.padding)
         wq = rand8(cout, kh, kw, c)
+        s1 = torch.rand(cout, generator=gen, device=dev) * 1e-3
+        s2 = torch.rand((), generator=gen, device=dev) + 0.5
+        bias = torch.randn(cout, generator=gen, device=dev)
         for batch in batches:          # the last is BATCH, timed below
             xq = rand8(batch, h, w, c)
-            got = int8_conv2d(xq, wq, *args)
-            want, tp = cuda_timed(
-                lambda: int8_conv2d_reference(xq, wq, *args))
-            exact(got, want, f"int8_conv2d at {name}, batch {batch}")
+            # int8_conv2d_dequant_reference, its two steps timed apart
+            sums, tp = cuda_timed(lambda: int8_conv2d_reference(xq, wq, *args))
+            exact(int8_conv2d(xq, wq, *args), sums,
+                  f"int8_conv2d at {name}, batch {batch}")
+            dq = (s1, s2, None if batch == 2 else bias)
+            got = int8_conv2d_dequant(xq, wq, *args, *dq)
+            want, t_dq = cuda_timed(lambda: dequantize_reference(sums, *dq))
+            tp += t_dq
+            exact(got, want, f"int8_conv2d_dequant at {name}, batch {batch}")
+            del sums
         ho, wo = got.shape[1:3]
         m, k = BATCH * ho * wo, kh * kw * c
         ops = 2 * m * k * cout
         bound = bound_ms(ops, INT8_OPS_PER_S, xq.numel() + wq.numel()
                          + 4 * m * cout)
         del got, want
-        t = cuda_ms(lambda: int8_conv2d(xq, wq, *args), reps=3, warmup=0)
+        def fused():
+            return int8_conv2d_dequant(xq, wq, *args, *dq)
+
+        t = cuda_ms(fused, reps=3, warmup=1)
+        t_host = host_ms(fused)
         x32 = torch.randn((BATCH, c, h, w), generator=gen, device=dev)
         t32 = cuda_ms(lambda: F.conv2d(x32, conv.weight, conv.bias, *args),
                       reps=3, warmup=1)
+        before = MMA_SYNC_CONV_MS[name]
         total["kernel"] += t
+        total["before"] += before
         total["bound"] += bound[0]
         total["plain"] += tp
         total["cudnn"] += t32
-        print(f"[int8-kernel] {name}: bit-equal at batches {batches}; batch "
-              f"{BATCH}, GEMM {m} x {k} x {cout}: kernel {t:.3f} ms "
-              f"({ops / t / 1e9:.1f} TOP/s), bound {bound[0]:.3f} ms by "
+        print(f"[int8-kernel] {name}: both epilogues bit-equal at batches "
+              f"{batches}; batch {BATCH}, GEMM {m} x {k} x {cout}: fused "
+              f"kernel {t:.3f} ms ({ops / t / 1e9:.1f} TOP/s; mma.sync "
+              f"version {before:.3f} ms; host {t_host:.3f} ms per call), "
+              f"bound {bound[0]:.3f} ms by "
               f"{bound[1]} ({bound[0] / t:.1%}), plain {tp:.3f} ms, float32 "
               f"cuDNN {t32:.3f} ms")
         del xq, wq, x32
-    print(f"[int8-kernel] {len(convs)} conv shapes at batch {BATCH}: kernel "
-          f"{total['kernel']:.2f} ms, bound {total['bound']:.2f} ms, plain "
+    print(f"[int8-kernel] {len(convs)} conv shapes at batch {BATCH}: fused "
+          f"kernel {total['kernel']:.2f} ms (mma.sync version "
+          f"{total['before']:.2f} ms), bound {total['bound']:.2f} ms "
+          f"({total['bound'] / total['kernel']:.1%}), plain "
           f"{total['plain']:.2f} ms, float32 cuDNN {total['cudnn']:.2f} ms")
     return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
                 bound_ms=probe_bound[0], bound_by=probe_bound[1],
@@ -525,18 +589,22 @@ def phase_int8_kernel(dev, model):
 
 def quantized_run(q, x):
     """``q(x)`` on ``x``'s device, with a record of each quantized conv it
-    runs: (output, {name: (input, output, int8 input, int8 weights, int32
-    sums)}), all on the CPU. ``q`` is a quantized model or one
-    ``Int8Conv2d``, on ``x``'s device."""
+    runs: (output, {name: (input, output, int8 input, int8 weights, fused
+    GEMM output, (stride, padding, s1, s2, bias))}), all on the CPU. ``q``
+    is a quantized model or one ``Int8Conv2d``, on ``x``'s device."""
     import torch
 
     from multipitch_architectures_tpu_torch.eval import quant
 
-    gemm, calls, records = quant.int8_conv2d, [], {}
+    gemm, calls, records = quant.int8_conv2d_dequant, [], {}
 
-    def recording(xq, wq, *args):
-        y = gemm(xq, wq, *args)
-        calls.append((xq.cpu(), wq.cpu(), y.cpu()))
+    def cpu(t):
+        return None if t is None else t.cpu()
+
+    def recording(xq, wq, stride, padding, s1, s2, bias=None):
+        y = gemm(xq, wq, stride, padding, s1, s2, bias)
+        calls.append((xq.cpu(), wq.cpu(), y.cpu(),
+                      (stride, padding, cpu(s1), cpu(s2), cpu(bias))))
         return y
 
     def record(conv, args, out):
@@ -544,15 +612,49 @@ def quantized_run(q, x):
 
     handles = [m.register_forward_hook(record) for m in q.modules()
                if isinstance(m, quant.Int8Conv2d)]
-    quant.int8_conv2d = recording
+    quant.int8_conv2d_dequant = recording
     try:
         with torch.no_grad():
             y = q(x).cpu()
     finally:
-        quant.int8_conv2d = gemm
+        quant.int8_conv2d_dequant = gemm
         for h in handles:
             h.remove()
     return y, records
+
+
+def int8_batch_split(q, x):
+    """CUDA-event times of one int8 batch ``q(x)``: (whole forward, its
+    quantized convs replayed alone, their fused GEMMs replayed alone), ms.
+    The differences are the quantize and layout passes around the GEMM
+    and the float32 rest."""
+    import torch
+
+    from multipitch_architectures_tpu_torch.eval import quant
+
+    gemm, convs, gemms = quant.int8_conv2d_dequant, [], []
+
+    def recording(*args):
+        gemms.append(args)
+        return gemm(*args)
+
+    handles = [m.register_forward_pre_hook(
+        lambda m, args: convs.append((m, args[0])))
+        for m in q.modules() if isinstance(m, quant.Int8Conv2d)]
+    quant.int8_conv2d_dequant = recording
+    try:
+        with torch.no_grad():
+            q(x)
+    finally:
+        quant.int8_conv2d_dequant = gemm
+        for h in handles:
+            h.remove()
+    with torch.no_grad():
+        whole = cuda_ms(lambda: q(x), reps=3, warmup=1)
+        conv_ms = sum(cuda_ms(lambda: m(a), reps=3, warmup=1)
+                      for m, a in convs)
+    gemm_ms = sum(cuda_ms(lambda: gemm(*a), reps=3, warmup=1) for a in gemms)
+    return whole, conv_ms, gemm_ms, len(gemms)
 
 
 def phase_int8_serving(dev, card, model, cpu_model):
@@ -566,7 +668,8 @@ def phase_int8_serving(dev, card, model, cpu_model):
         predict_framewise_int8, quant, quantize_convs)
     from multipitch_architectures_tpu_torch.eval.inference import _pad_inputs
     from multipitch_architectures_tpu_torch.ops.cqt_octave import cqt_octave
-    from multipitch_architectures_tpu_torch.ops.int8_gemm import int8_conv2d
+    from multipitch_architectures_tpu_torch.ops.int8_gemm import (
+        dequantize_reference, int8_conv2d, int8_conv2d_dequant)
 
     n_convs = len(eligible_convs(model))
 
@@ -591,13 +694,18 @@ def phase_int8_serving(dev, card, model, cpu_model):
     serve(audio(10.0, SEED + 98), **kw)            # warm-up, not counted
     requests = [audio(s, SEED + 10 + i)
                 for i, s in enumerate(INT8_REQUEST_SECONDS)]
-    int8_conv2d.launches = cqt_octave.launches = 0
-    results = [serve(y, **kw) for y in requests]
-    launches, hcqt_launches = int8_conv2d.launches, cqt_octave.launches
+    int8_conv2d_dequant.launches = cqt_octave.launches = 0
+    results, peaks = [], []
+    for y in requests:
+        torch.cuda.reset_peak_memory_stats(dev)
+        results.append(serve(y, **kw))
+        peaks.append(torch.cuda.max_memory_allocated(dev))
+    launches = int8_conv2d_dequant.launches
+    hcqt_launches = cqt_octave.launches
     want = n_convs * sum(len(int8_batch_sizes(frames(s), BATCH, GROUP, 1))
                          for s in INT8_REQUEST_SECONDS)
-    for seconds, y, (f, pred, t_hcqt, wall) in zip(INT8_REQUEST_SECONDS,
-                                                   requests, results):
+    for seconds, y, (f, pred, t_hcqt, wall), peak in zip(
+            INT8_REQUEST_SECONDS, requests, results, peaks):
         t = frames(seconds)
         check(seconds, pred, t)
         t0 = time.perf_counter()
@@ -617,17 +725,31 @@ def phase_int8_serving(dev, card, model, cpu_model):
               f"{t_hcqt * 1e3:.1f} ms), float32 {f32_wall * 1e3:.1f} ms "
               f"({seconds / f32_wall:.2f}x); against float32: calibration "
               f"span {cal_gap:.2e}, int8 frames max gap {int8_gap:.3e}; "
-              f"{card}")
+              f"peak device memory {peak / 2**30:.2f} GiB; {card}")
     if launches != want or hcqt_launches != 21 * len(requests):
-        raise AssertionError(f"{launches} int8 GEMM launches (want {want}) "
-                             f"and {hcqt_launches} CQT launches in "
+        raise AssertionError(f"{launches} fused int8 GEMM launches (want "
+                             f"{want}) and {hcqt_launches} CQT launches in "
                              f"{len(requests)} int8 requests")
-    print(f"[int8-serving] int8 GEMM launches {launches} = {n_convs} convs x "
-          f"{want // n_convs} int8 batches of the drains; CQT launches "
-          f"{hcqt_launches}")
+    print(f"[int8-serving] fused int8 GEMM launches {launches} = {n_convs} "
+          f"convs x {want // n_convs} int8 batches of the drains; CQT "
+          f"launches {hcqt_launches}")
+
+    # one int8 batch of 250 windows of the 30-s request, split
+    f = results[0][0]
+    xp = _pad_inputs(torch.log1p(10.0 * f), 75)
+    cal, xb = (gather_windows(xp, 37 + s + np.arange(BATCH), 75)
+               for s in (0, BATCH))
+    q = quantize_convs(model, activation_scales=calibrate_activation_scales(
+        model, [cal]))
+    whole, conv_ms, gemm_ms, n = int8_batch_split(q, xb)
+    print(f"[int8-serving] one int8 batch of {BATCH}: {whole:.2f} ms = int8 "
+          f"GEMM, dequantize fused ({n} launches) {gemm_ms:.2f} ms + "
+          f"quantize and layout passes {conv_ms - gemm_ms:.2f} ms + float32 "
+          f"rest {whole - conv_ms:.2f} ms; {card}")
+    del q, cal, xb
     for label, fn in (
-            ("int8 request (HCQT and model)",
-             lambda: serve(requests[-1], **kw)),
+            *[(f"int8 request (HCQT and model), reading {i + 1} of 3",
+               lambda: serve(requests[-1], **kw)) for i in range(3)],
             ("float32 request (model)",
              lambda: predict_framewise(model, results[-1][0],
                                        batch_size=BATCH, group=GROUP))):
@@ -642,7 +764,7 @@ def phase_int8_serving(dev, card, model, cpu_model):
     quant.auto_hybrid_int8 = lambda *a, **k: (
         searches.append(search(*a, **k)) or searches[-1])
     y = audio(GATED_SECONDS, SEED + 20)
-    int8_conv2d.launches = 0
+    int8_conv2d_dequant.launches = 0
     try:
         _, pred, _, wall = serve(y, batch_size=GATED_BATCH, gate=GATE)
     finally:
@@ -654,8 +776,8 @@ def phase_int8_serving(dev, card, model, cpu_model):
           f"{tuple(pred.shape)}: worst drift {report['worst']:.3e} "
           f"({'passed' if report['passed'] else 'FAILED'}), "
           f"{len(policy['exclude'])} of {n_convs} convs demoted to float32 "
-          f"{list(policy['exclude'])}, {int8_conv2d.launches} int8 GEMM "
-          f"launches, wall {wall:.2f} s")
+          f"{list(policy['exclude'])}, {int8_conv2d_dequant.launches} int8 "
+          f"GEMM launches, wall {wall:.2f} s")
 
     # a few windows: each quantized conv of the card's forward fed again
     # on the CPU (teacher-forced), and the whole quantized model on the
@@ -670,21 +792,34 @@ def phase_int8_serving(dev, card, model, cpu_model):
     cpu_q = quantize_convs(cpu_model, activation_scales=cpu_scales)
     want, free = quantized_run(cpu_q, xw.cpu())
     cpu_convs = dict(cpu_q.named_modules())
-    worst = dict(flips=0, weights=0, sums=0.0, gap=0.0)
-    for name, (x, y, xq, wq, y32) in card.items():
-        _, y_c, xq_c, wq_c, y32_c = quantized_run(cpu_convs[name], x)[1][name]
+    worst = dict(flips=0, weights=0, sums=0.0, fused=0, gap=0.0)
+    for name, (x, y, xq, wq, yq, (stride, padding, *dq)) in card.items():
+        _, y_c, xq_c, wq_c, _, _ = quantized_run(cpu_convs[name], x)[1][name]
         worst["flips"] = max(worst["flips"], int((xq != xq_c).sum()))
         worst["weights"] = max(worst["weights"], int((wq != wq_c).sum()))
-        worst["sums"] = max(worst["sums"], float((y32 - y32_c).abs().max()))
+        # the int32 sums of the card's int8 operands: the kernel on the
+        # card, the plain version on the CPU
+        y32 = int8_conv2d(xq.to(dev), wq.to(dev), stride, padding)
+        y32_c = int8_conv2d(xq_c, wq_c, stride, padding)
+        worst["sums"] = max(worst["sums"],
+                            float((y32.cpu() - y32_c).abs().max()))
+        # the fused output against the plain dequantize of those sums
+        plain = dequantize_reference(
+            y32, *(None if t is None else t.to(dev) for t in dq))
+        worst["fused"] = max(worst["fused"],
+                             int((plain.cpu() != yq).sum()))
         worst["gap"] = max(worst["gap"], float((y - y_c).abs().max()))
     if (len(card) != n_convs or worst["flips"] or worst["weights"]
-            or worst["sums"] or not worst["gap"] <= DEQUANT_TOL):
+            or worst["sums"] or worst["fused"]
+            or not worst["gap"] <= DEQUANT_TOL):
         raise AssertionError(f"quantized convs, card vs CPU on the card's "
                              f"inputs ({len(card)} of {n_convs}): {worst}")
     print(f"[int8-serving] {len(card)} quantized convs on {len(xw)} windows, "
           f"teacher-forced card vs CPU: int8 inputs and weights equal, int32 "
-          f"sums equal, dequantized outputs within {worst['gap']:.3e} "
-          f"(<= {DEQUANT_TOL:g})")
+          f"sums (kernel on the card, plain version on the CPU) equal, fused "
+          f"output equal bit for bit to the plain dequantize of the card's "
+          f"sums, card vs CPU outputs within {worst['gap']:.3e} (<= "
+          f"{DEQUANT_TOL:g})")
     with torch.no_grad():
         f32 = model(xw).cpu()
     flips = ", ".join(f"{k} {int((v[2] != free[k][2]).sum())}/{v[2].numel()}"
@@ -697,17 +832,33 @@ def phase_int8_serving(dev, card, model, cpu_model):
 
 
 def main():
+    t0 = time.perf_counter()
+    seconds = {}
+
+    def lap(phase):
+        nonlocal t0
+        t = time.perf_counter()
+        seconds[phase], t0 = t - t0, t
+
     dev, card = phase_device()
     phase_build()
+    lap("device and build")
     cqt = phase_kernel(dev)
+    lap("kernel")
     phase_hcqt(dev)
+    lap("hcqt")
     cqt_launches, model, cpu_model = phase_serving(dev, card)
+    lap("serving")
     gemm = phase_int8_kernel(dev, model)
+    lap("int8-kernel")
     gemm_launches, sums_err = phase_int8_serving(dev, card, model, cpu_model)
+    lap("int8-serving")
     gemm["max_abs_err"] = max(gemm["max_abs_err"], sums_err)
 
     import torch
 
+    print("[phases] seconds: " + ", ".join(f"{k} {v:.1f}"
+                                           for k, v in seconds.items()))
     print(card)
     print(json.dumps({"kernels": [{
         "name": "cqt_octave",

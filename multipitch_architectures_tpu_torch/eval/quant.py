@@ -7,8 +7,8 @@ weights runs as
     per-output-channel symmetric int8 weights,
     per-tensor (or per-input-channel) int8 activations: dynamic (max-abs
         per call) or calibrated static scales,
-    int32 sums on the card's int8 GEMM (``ops.int8_gemm.int8_conv2d``),
-        dequantize and bias in float32.
+    int32 sums on the card's int8 GEMM, dequantize and bias in float32
+        fused into its epilogue (``ops.int8_gemm.int8_conv2d_dequant``).
 
 Norms, attention, pooling, resizing and the small head convs stay
 float32. Where the JAX package swaps convs at trace time with a flax
@@ -44,7 +44,7 @@ import torch
 from torch import nn
 
 from ..data.windows import gather_windows
-from ..ops.int8_gemm import int8_conv2d
+from ..ops.int8_gemm import int8_conv2d_dequant
 from .inference import _pad_inputs, predict_framewise
 from .measures import calculate_eval_measures
 from .mireval import calculate_mpe_measures_mireval
@@ -71,10 +71,13 @@ def _weight_scales(w):
         QMAX, w)
 
 
-def _conv_int32(xq, wq, stride, padding):
-    """int8 NCHW activation, int8 OIHW kernel -> int32 NHWC sums."""
-    return int8_conv2d(xq.permute(0, 2, 3, 1).contiguous(),
-                       wq.permute(0, 2, 3, 1).contiguous(), stride, padding)
+def _conv_dequant(xq, wq, stride, padding, s1, s2, bias):
+    """int8 NCHW activation, int8 OIHW kernel -> ((int32 sums · s1) · s2)
+    + bias in float32, as an NCHW view of the channels-last result."""
+    y = int8_conv2d_dequant(xq.permute(0, 2, 3, 1).contiguous(),
+                            wq.permute(0, 2, 3, 1).contiguous(), stride,
+                            padding, s1, s2, bias)
+    return y.permute(0, 3, 1, 2)
 
 
 def quantized_conv(x, weight, bias, stride, padding):
@@ -85,11 +88,8 @@ def quantized_conv(x, weight, bias, stride, padding):
     ws = _weight_scales(weight)
     wq = _quantize(weight, ws[:, None, None, None])
     xs = torch.clamp_min(x.abs().amax(), 1e-12) / _constant(QMAX, x)
-    y = _conv_int32(_quantize(x, xs), wq, stride, padding).float()
-    y.mul_(ws * xs)
-    if bias is not None:
-        y.add_(bias)
-    return y.permute(0, 3, 1, 2)
+    return _conv_dequant(_quantize(x, xs), wq, stride, padding, ws * xs,
+                         _constant(1.0, x), bias)
 
 
 def quantized_conv_static(x, weight, bias, stride, padding, x_scale):
@@ -104,13 +104,8 @@ def quantized_conv_static(x, weight, bias, stride, padding, x_scale):
     ws = _weight_scales(weight)
     wq = _quantize(weight, ws[:, None, None, None])
     xq = _quantize(x, xs if xs.dim() == 0 else xs[None, :, None, None])
-    y = _conv_int32(xq, wq, stride, padding).float()
-    y.mul_(ws)
-    if xs.dim() == 0:
-        y.mul_(xs)
-    if bias is not None:
-        y.add_(bias)
-    return y.permute(0, 3, 1, 2)
+    return _conv_dequant(xq, wq, stride, padding, ws,
+                         xs if xs.dim() == 0 else _constant(1.0, x), bias)
 
 
 class Int8Conv2d(nn.Module):

@@ -1,5 +1,5 @@
 """The int8 GEMM: int8 x int8 -> int32 products, dense and as an
-implicit-GEMM convolution.
+implicit-GEMM convolution, with an optional fused dequantize.
 
 Counterpart of the int8 probe kernels
 ``perf/pallas_int8_matmul_probe.py :: pallas_int8_mm`` and
@@ -7,11 +7,14 @@ Counterpart of the int8 probe kernels
 the int8 serving mode (``eval/quant.py``), which the JAX package left to
 XLA's ``conv_general_dilated(int8, int8, preferred_element_type=int32)``.
 
-:func:`int8_mm` and :func:`int8_conv2d` launch the CUDA kernel
-``csrc/int8_gemm.cu`` for tensors on the card and take the plain
-versions :func:`int8_mm_reference` and :func:`int8_conv2d_reference` for
-tensors on the CPU. The plain versions are exact: every partial sum
-they form is an integer that their float type represents exactly.
+:func:`int8_mm`, :func:`int8_conv2d` and :func:`int8_conv2d_dequant`
+launch the CUDA kernel ``csrc/int8_gemm.cu`` (wgmma, one mainloop, an
+int32 or a fused-dequantize epilogue) for tensors on the card and take
+the plain versions :func:`int8_mm_reference`,
+:func:`int8_conv2d_reference` and :func:`int8_conv2d_dequant_reference`
+for tensors on the CPU. The plain versions are exact: every partial sum
+they form is an integer that their float type represents exactly, and
+the dequantize rounds each float32 step as the kernel does.
 """
 
 import ctypes
@@ -22,7 +25,8 @@ import torch.nn.functional as F
 
 from . import _build
 
-CHANNEL_ALIGN = 16   # the kernel copies 16-byte chunks of one pixel
+CHANNEL_ALIGN = 16   # the kernel copies 16-byte chunks of one pixel, or
+NARROW_ALIGN = 8     # 8-byte ones for inputs of at most 8 channels
 
 
 def int8_mm_reference(a, b):
@@ -56,15 +60,42 @@ def int8_conv2d_reference(xq, wq, stride=(1, 1), padding=(0, 0)):
     return y.permute(0, 2, 3, 1).contiguous()
 
 
-@functools.lru_cache(maxsize=None)
-def _lib():
-    lib = _build.load("int8_gemm")
+def dequantize_reference(sums, s1, s2, bias=None):
+    """The fused epilogue's plain version: int32 ``sums`` (..., Cout) as
+    ``.float()``, ``mul_(s1)``, ``mul_(s2)`` and ``add_(bias)``, each a
+    float32 pass rounded to nearest."""
+    y = sums.float()
+    y.mul_(s1)
+    y.mul_(s2)
+    if bias is not None:
+        y.add_(bias)
+    return y
+
+
+def int8_conv2d_dequant_reference(xq, wq, stride, padding, s1, s2,
+                                  bias=None):
+    """Plain version of :func:`int8_conv2d_dequant` on any device: the
+    exact int32 sums, then :func:`dequantize_reference`."""
+    return dequantize_reference(
+        int8_conv2d_reference(xq, wq, stride, padding), s1, s2, bias)
+
+
+def bind(lib):
+    """Declares the argument and result types of the kernel library's C
+    entry points on ``lib`` (a ``ctypes.CDLL``); returns it."""
     ptr, i = ctypes.c_void_p, ctypes.c_int
     lib.int8_mm_launch.argtypes = [ptr, ptr, ptr, i, i, i, ptr]
-    lib.int8_mm_launch.restype = i
     lib.int8_conv2d_launch.argtypes = [ptr, ptr, ptr] + [i] * 11 + [ptr]
-    lib.int8_conv2d_launch.restype = i
+    lib.int8_conv2d_dequant_launch.argtypes = ([ptr, ptr, ptr] + [i] * 11
+                                               + [ptr] * 4)
+    for entry in ("int8_mm", "int8_conv2d", "int8_conv2d_dequant"):
+        getattr(lib, f"{entry}_launch").restype = i
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _lib():
+    return bind(_build.load("int8_gemm"))
 
 
 def _pad_last(t, multiple):
@@ -116,21 +147,8 @@ def int8_mm(a, b):
     return out
 
 
-def int8_conv2d(xq, wq, stride=(1, 1), padding=(0, 0)):
-    """int8 convolution with int32 sums, channels last.
-
-    Args:
-        xq: (N, H, W, C) int8 activation.
-        wq: (Cout, kh, kw, C) int8 weights: the GEMM's B, K-contiguous.
-        stride, padding: (sh, sw) and symmetric zero padding (ph, pw).
-    Returns: (N, Ho, Wo, Cout) int32.
-
-    On the CPU this is :func:`int8_conv2d_reference`. On the card it
-    launches the kernel on the current stream, or raises; each launch
-    adds one to ``int8_conv2d.launches``. The kernel gathers its A tiles
-    from ``xq`` itself (no im2col buffer); C is zero-padded to a multiple
-    of 16 where needed.
-    """
+def _conv_shape(xq, wq, stride, padding):
+    """Checks a convolution's operands; returns (N, Ho, Wo, Cout)."""
     if xq.dim() != 4 or wq.dim() != 4 or xq.shape[3] != wq.shape[3]:
         raise ValueError(f"want xq (N, H, W, C) and wq (Cout, kh, kw, C), got "
                          f"{tuple(xq.shape)} and {tuple(wq.shape)}")
@@ -145,22 +163,104 @@ def int8_conv2d(xq, wq, stride=(1, 1), padding=(0, 0)):
     if min(sh, sw) < 1 or min(ph, pw) < 0 or ho < 1 or wo < 1:
         raise ValueError(f"stride {stride} and padding {padding} give an "
                          f"empty output for {h} x {w} and {kh} x {kw}")
-    if xq.device.type == "cpu":
-        return int8_conv2d_reference(xq, wq, stride, padding)
+    return n, ho, wo, cout
+
+
+def pad_channels(xq, wq):
+    """``xq`` and ``wq`` with their channels zero-padded as the kernel
+    takes them: to 8 for at most 8 channels (the 6-channel first conv,
+    copied in 8-byte pieces), else to a multiple of 16. Zero channels add
+    nothing to the sums."""
+    c = xq.shape[3]
+    multiple = NARROW_ALIGN if c <= NARROW_ALIGN else CHANNEL_ALIGN
+    return _pad_last(xq, multiple), _pad_last(wq, multiple)
+
+
+def _launch_conv(entry, xq, wq, stride, padding, out, *extra):
+    """Pads the operands, launches ``entry`` into ``out``, raises on a
+    CUDA error. The weights go as (Cout, K) rows zero-padded to a multiple
+    of 16 bytes."""
     _check_card_operands(xq, wq)
-    xq, wq = _pad_last(xq, CHANNEL_ALIGN), _pad_last(wq, CHANNEL_ALIGN)
-    out = torch.empty((n, ho, wo, cout), dtype=torch.int32, device=xq.device)
+    xq, wq = pad_channels(xq, wq)
+    cout, kh, kw, c = wq.shape
+    wk = _pad_last(wq.reshape(cout, -1), CHANNEL_ALIGN)
+    n, h, w, _ = xq.shape
     with torch.cuda.device(xq.device):
-        rc = _lib().int8_conv2d_launch(
-            xq.data_ptr(), wq.data_ptr(), out.data_ptr(), n, h, w,
-            xq.shape[3], cout, kh, kw, sh, sw, ph, pw,
+        rc = getattr(_lib(), f"{entry}_launch")(
+            xq.data_ptr(), wk.data_ptr(), out.data_ptr(), n, h, w, c, cout,
+            kh, kw, *stride, *padding, *extra,
             torch.cuda.current_stream().cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"int8_conv2d kernel launch failed: CUDA error "
-                           f"{rc}")
+        raise RuntimeError(f"{entry} kernel launch failed: CUDA error {rc}")
+
+
+def int8_conv2d(xq, wq, stride=(1, 1), padding=(0, 0)):
+    """int8 convolution with int32 sums, channels last.
+
+    Args:
+        xq: (N, H, W, C) int8 activation.
+        wq: (Cout, kh, kw, C) int8 weights: the GEMM's B, K-contiguous.
+        stride, padding: (sh, sw) and symmetric zero padding (ph, pw).
+    Returns: (N, Ho, Wo, Cout) int32.
+
+    On the CPU this is :func:`int8_conv2d_reference`. On the card it
+    launches the kernel on the current stream, or raises; each launch
+    adds one to ``int8_conv2d.launches``. The kernel gathers its A tiles
+    from ``xq`` itself (no im2col buffer); C is zero-padded as
+    :func:`pad_channels` says.
+    """
+    shape = _conv_shape(xq, wq, stride, padding)
+    if xq.device.type == "cpu":
+        return int8_conv2d_reference(xq, wq, stride, padding)
+    out = torch.empty(shape, dtype=torch.int32, device=xq.device)
+    _launch_conv("int8_conv2d", xq, wq, stride, padding, out)
     int8_conv2d.launches += 1
+    return out
+
+
+def _check_float(t, shape, what, device):
+    if t.dtype != torch.float32:
+        raise TypeError(f"{what} must be float32, got {t.dtype}")
+    if t.device != device:
+        raise ValueError(f"{what} on {t.device}, the operands on {device}")
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{what} must have shape {shape}, got "
+                         f"{tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{what} must be contiguous")
+
+
+def int8_conv2d_dequant(xq, wq, stride, padding, s1, s2, bias=None):
+    """:func:`int8_conv2d` with the dequantize fused into the kernel's
+    epilogue: float32 (N, Ho, Wo, Cout) ``((float(sums) · s1) · s2) +
+    bias``, each step rounded to nearest, bit-equal to the unfused passes.
+
+    Args:
+        xq, wq, stride, padding: as :func:`int8_conv2d`.
+        s1: (Cout,) float32 scales; s2: a 0-dim float32 scale; bias:
+            (Cout,) float32 or None. All on the operands' device.
+
+    On the CPU this is :func:`int8_conv2d_dequant_reference`. On the card
+    it launches the kernel on the current stream, or raises; each launch
+    adds one to ``int8_conv2d_dequant.launches``.
+    """
+    shape = _conv_shape(xq, wq, stride, padding)
+    cout = (shape[3],)
+    _check_float(s1, cout, "s1", xq.device)
+    _check_float(s2, (), "s2", xq.device)
+    if bias is not None:
+        _check_float(bias, cout, "bias", xq.device)
+    if xq.device.type == "cpu":
+        return int8_conv2d_dequant_reference(xq, wq, stride, padding, s1, s2,
+                                             bias)
+    out = torch.empty(shape, dtype=torch.float32, device=xq.device)
+    _launch_conv("int8_conv2d_dequant", xq, wq, stride, padding, out,
+                 s1.data_ptr(), s2.data_ptr(),
+                 None if bias is None else bias.data_ptr())
+    int8_conv2d_dequant.launches += 1
     return out
 
 
 int8_mm.launches = 0
 int8_conv2d.launches = 0
+int8_conv2d_dequant.launches = 0

@@ -139,15 +139,15 @@ def _capture_jax(monkeypatch, fn, *args):
 
 def _capture_port(monkeypatch, fn, *args):
     seen = {}
-    conv = tquant.int8_conv2d
+    conv = tquant.int8_conv2d_dequant
 
     def capture(xq, wq, *a, **kw):
         seen["xq"], seen["wq"] = xq.numpy(), wq.numpy()
         return conv(xq, wq, *a, **kw)
 
-    monkeypatch.setattr(tquant, "int8_conv2d", capture)
+    monkeypatch.setattr(tquant, "int8_conv2d_dequant", capture)
     y = fn(*args).numpy()
-    monkeypatch.setattr(tquant, "int8_conv2d", conv)
+    monkeypatch.setattr(tquant, "int8_conv2d_dequant", conv)
     return seen, y
 
 
