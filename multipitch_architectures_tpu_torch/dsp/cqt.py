@@ -11,9 +11,12 @@ multirate scheme (Schörkhuber & Klapuri, as librosa.cqt):
   sinusoid at bin k peaks near sqrt(l_k)/2, ``l_k`` the full-rate filter
   length (librosa's ``scale=True``).
 
-The plan (kernels, taps, geometry) is host-side numpy; each octave's
-framing, product and magnitude is :func:`..ops.cqt_octave.cqt_octave`,
-which runs the CUDA kernel for a signal on the card.
+The plan (kernels, taps, geometry) is host-side numpy. A CQT first
+builds its octaves' signals (the decimation chain and each reflect pad),
+then hands the whole work list to one
+:func:`..ops.cqt_octave.cqt_octaves` call: framing, product, magnitude
+and scale of every octave, in one launch of the CUDA kernel for a signal
+on the card.
 """
 
 import math
@@ -25,7 +28,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..ops.cqt_octave import cqt_octave
+from ..ops.cqt_octave import Octave, bank_for_kernel, cqt_octaves
 
 
 def _hann_periodic(n: int) -> np.ndarray:
@@ -132,15 +135,30 @@ class CqtPlan:
             taps=taps)
 
     def tensors(self, device):
-        """(krs, sqrt_lengths, taps) as tensors on ``device``, copied there
-        once per plan and device."""
+        """(krs, banks, scales, taps) as tensors on ``device``, copied there
+        once per plan and device. ``banks`` are the krs in the kernel's
+        layout (:func:`bank_for_kernel`), on the card only (Nones
+        elsewhere); ``scales`` hold each octave's magnitude scale: the
+        full-rate ``sqrt(lengths)``, times ``sqrt(2^k)`` for octave k of a
+        multirate plan."""
         key = torch.device(device)
         if key not in self._on_device:
             def on(a):
                 return torch.as_tensor(a, device=key)
 
+            sqls = [torch.as_tensor(s) for s in self.sqrt_lengths]
+            if self.exact:
+                scales = sqls
+            else:
+                # float32 products, as torch forms them on any device
+                scales = [sqls[0] * np.sqrt(2.0 ** k)
+                          for k in range(self.n_octaves)]
+            banks = (None,) * len(self.krs)
+            if key.type == "cuda":
+                banks = tuple(on(bank_for_kernel(kr)) for kr in self.krs)
             self._on_device[key] = (
-                tuple(map(on, self.krs)), tuple(map(on, self.sqrt_lengths)),
+                tuple(map(on, self.krs)), banks,
+                tuple(s.to(key) for s in scales),
                 None if self.taps is None else on(self.taps))
         return self._on_device[key]
 
@@ -165,48 +183,62 @@ def _decimate2(y, taps):
     return out.view(-1)[:(y.shape[0] + 1) // 2]
 
 
-def _octave(y, kr, n_fft, hop, n_frames, bpo):
-    """Reflect-pad by n_fft//2, then one octave's magnitudes (T, bpo)."""
-    return cqt_octave(_reflect_pad(y, n_fft // 2), kr, hop=hop, n_fft=n_fft,
-                      bpo=bpo, n_frames=n_frames)
-
-
 def cqt(y, plan: CqtPlan):
     """Magnitude CQT of ``y`` (1-D float32 tensor) -> (n_bins, n_frames)
     float32 on ``y``'s device, ``n_frames = len(y) // hop + 1`` (librosa's
     centered convention)."""
+    octaves, out = cqt_work_list(y, plan)
+    cqt_octaves(octaves, bpo=plan.bins_per_octave)
+    return out[:, -plan.n_bins:].T                # (n_bins, T)
+
+
+def cqt_work_list(y, plan: CqtPlan):
+    """The octaves of ``cqt(y, plan)`` as a work list for
+    :func:`cqt_octaves`, and the (T, n_octaves·bpo) output they fill;
+    ``out[:, -n_bins:].T`` is the CQT once they have run."""
     if y.dim() != 1 or y.dtype != torch.float32:
         raise ValueError(f"want a 1-D float32 signal, got {y.dtype} "
                          f"{tuple(y.shape)}")
-    krs, sqls, taps = plan.tensors(y.device)
+    krs, banks, scales, taps = plan.tensors(y.device)
     if plan.exact:
-        return _cqt_exact_impl(y, krs, sqls, hop=plan.hop,
+        return _cqt_exact_impl(y, krs, banks, scales, hop=plan.hop,
                                n_ffts=plan.n_ffts,
-                               bpo=plan.bins_per_octave, n_bins=plan.n_bins)
-    return _cqt_impl(y, krs[0], sqls[0], taps, hop=plan.hop,
+                               bpo=plan.bins_per_octave)
+    return _cqt_impl(y, krs[0], banks[0], scales, taps, hop=plan.hop,
                      n_fft=plan.n_ffts[0], n_octaves=plan.n_octaves,
-                     bpo=plan.bins_per_octave, n_bins=plan.n_bins)
+                     bpo=plan.bins_per_octave)
 
 
-def _cqt_exact_impl(y, krs, sqls, *, hop, n_ffts, bpo, n_bins):
+def _output(y, hop, n_octaves, bpo):
+    return torch.empty((y.shape[0] // hop + 1, n_octaves * bpo),
+                       dtype=torch.float32, device=y.device)
+
+
+def _cqt_exact_impl(y, krs, banks, scales, *, hop, n_ffts, bpo):
     """Exact CQT: per-octave full-rate banks, no decimation. Octave j is
-    bins [j·bpo, (j+1)·bpo) from fmin."""
-    n_frames = y.shape[0] // hop + 1
-    out = torch.cat([_octave(y, kr, n_fft, hop, n_frames, bpo) * sql
-                     for kr, sql, n_fft in zip(krs, sqls, n_ffts)], dim=1)
-    return out[:, -n_bins:].T                     # (n_bins, T)
+    bins [j·bpo, (j+1)·bpo) from fmin, columns [j·bpo, (j+1)·bpo)."""
+    out = _output(y, hop, len(krs), bpo)
+    octaves = [Octave(_reflect_pad(y, n_fft // 2), kr, bank, scale, out,
+                      hop=hop, n_fft=n_fft, n_frames=out.shape[0],
+                      col=j * bpo)
+               for j, (kr, bank, scale, n_fft) in enumerate(
+                   zip(krs, banks, scales, n_ffts))]
+    return octaves, out
 
 
-def _cqt_impl(y, kr, sqrt_lengths, taps, *, hop, n_fft, n_octaves, bpo,
-              n_bins):
-    n_frames = y.shape[0] // hop + 1
+def _cqt_impl(y, kr, bank, scales, taps, *, hop, n_fft, n_octaves, bpo):
+    """Multirate CQT: octave k, from the top, is the signal decimated k
+    times with the hop halved k times, and covers bins
+    [n_bins - (k+1)·bpo, n_bins - k·bpo), columns
+    [(n_octaves-1-k)·bpo, (n_octaves-k)·bpo)."""
+    out = _output(y, hop, n_octaves, bpo)
     octaves = []
     for k in range(n_octaves):
-        mag = _octave(y, kr, n_fft, hop, n_frames, bpo)
-        octaves.append(mag * (sqrt_lengths * np.sqrt(2.0 ** k)))
+        octaves.append(Octave(_reflect_pad(y, n_fft // 2), kr, bank,
+                              scales[k], out, hop=hop, n_fft=n_fft,
+                              n_frames=out.shape[0],
+                              col=(n_octaves - 1 - k) * bpo))
         if k + 1 < n_octaves:
             y = _decimate2(y, taps)
             hop //= 2
-    # octave k covers bins [n_bins - (k+1)·bpo, n_bins - k·bpo)
-    out = torch.cat(octaves[::-1], dim=1)         # (T, n_octaves·bpo)
-    return out[:, -n_bins:].T                     # (n_bins, T)
+    return octaves, out

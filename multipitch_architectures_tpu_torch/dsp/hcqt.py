@@ -3,7 +3,9 @@
 Counterpart of ``multipitch_architectures_tpu/dsp/hcqt.py``: the
 efficient HCQT of the reference (libdl/data_preprocessing/hcqt.py:89-164)
 computes one extended CQT per power-of-two "base harmonic" group and takes
-harmonics related by 2^k as octave-shifted slices of it.
+harmonics related by 2^k as octave-shifted slices of it. The octaves of
+all bases go to the CQT octave kernel as one work list: one launch per
+HCQT.
 """
 
 import math
@@ -13,7 +15,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .cqt import CqtPlan, cqt
+from ..ops.cqt_octave import cqt_octaves
+from .cqt import CqtPlan, cqt_work_list
 
 C1_HZ = 32.70319566257483  # librosa.note_to_hz('C1')
 
@@ -99,13 +102,21 @@ def efficient_hcqt_device(f_audio, fs=22050, fmin=C1_HZ, fs_hcqt_target=91,
     n_bins = bins_per_octave * num_octaves
     harmonics, assignment = _harmonic_layout(num_harmonics, num_subharmonics)
 
-    channels = [None] * len(harmonics)
+    # the bases' octaves (9 + 6 + 6 on the serving path) in one launch
+    bases, octaves = [], []
     for base in sorted({b for b, _ in assignment}):
         max_shift = max(s for b, s in assignment if b == base)
         plan = _plan(float(fs), int(hopsize_cqt), float(fmin_tuned * base),
                      int((num_octaves + max_shift) * bins_per_octave),
                      int(bins_per_octave), exact=exact)
-        f_cqt = cqt(y, plan)                          # (bins, T)
+        work, out = cqt_work_list(y, plan)
+        octaves += work
+        bases.append((base, plan, out))
+    cqt_octaves(octaves, bpo=int(bins_per_octave))
+
+    channels = [None] * len(harmonics)
+    for base, plan, out in bases:
+        f_cqt = out[:, -plan.n_bins:].T               # (bins, T)
         for idx, (b, shift) in enumerate(assignment):
             if b == base:
                 lo = shift * bins_per_octave

@@ -80,9 +80,11 @@ def int8_conv2d_dequant_reference(xq, wq, stride, padding, s1, s2,
         int8_conv2d_reference(xq, wq, stride, padding), s1, s2, bias)
 
 
-def bind(lib):
-    """Declares the argument and result types of the kernel library's C
-    entry points on ``lib`` (a ``ctypes.CDLL``); returns it."""
+@functools.lru_cache(maxsize=None)
+def _lib(source=None):
+    """The kernel's library, built from ``csrc/int8_gemm.cu`` (or from
+    ``source``, a variant of it), with its C entry points typed."""
+    lib = _build.load("int8_gemm", source)
     ptr, i = ctypes.c_void_p, ctypes.c_int
     lib.int8_mm_launch.argtypes = [ptr, ptr, ptr, i, i, i, ptr]
     lib.int8_conv2d_launch.argtypes = [ptr, ptr, ptr] + [i] * 11 + [ptr]
@@ -91,11 +93,6 @@ def bind(lib):
     for entry in ("int8_mm", "int8_conv2d", "int8_conv2d_dequant"):
         getattr(lib, f"{entry}_launch").restype = i
     return lib
-
-
-@functools.lru_cache(maxsize=None)
-def _lib():
-    return bind(_build.load("int8_gemm"))
 
 
 def _pad_last(t, multiple):

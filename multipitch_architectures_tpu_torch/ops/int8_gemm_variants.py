@@ -6,10 +6,8 @@ quantized conv shapes of exp180e at batch 250 and at the 4096³ probe.
 
 Each variant is ``csrc/int8_gemm.cu`` with a few lines replaced (the
 ``VARIANTS`` table: the designs tried and dropped, and diagnostic cuts),
-built with the same nvcc flags into ``csrc/build/variants/``, all builds
-started together, and run through the same wrappers; the arguments pick
-variants (all by default). A replaced text that is no longer in the
-source stops the run. Every variant that computes the product is held
+built and run through the same wrappers by the shared harness
+``_variants``; the arguments pick variants (all by default). Every variant that computes the product is held
 bit-equal to the plain version at batches 23 and 250 (the probe at its
 one shape), and the run exits non-zero if one is not; the diagnostic
 variants (``no_*``) compute garbage and are only timed. Times are
@@ -17,18 +15,13 @@ CUDA-event means of 5 launches after one warm-up, the variants in turns
 at each shape. Needs one CUDA card.
 """
 
-import ctypes
 import functools
-import os
-import subprocess
 import sys
-import time
-from concurrent.futures import ThreadPoolExecutor
 
 import torch
 import torch.nn.functional as F
 
-from . import _build
+from . import _variants
 from . import int8_gemm
 
 BATCH, PROBE = 250, 4096
@@ -92,32 +85,6 @@ def pad_16(xq, wq):
     return tuple(F.pad(t, (0, -t.shape[-1] % 16)) for t in (xq, wq))
 
 
-def variant_source(name):
-    """The source of variant ``name``; raises if a replaced text is gone."""
-    with open(os.path.join(_build.CSRC_DIR, "int8_gemm.cu")) as f:
-        src = f.read()
-    for old, new in VARIANTS[name]:
-        if old not in src:
-            raise ValueError(f"variant {name}: {old!r} not in the source")
-        src = src.replace(old, new)
-    return src
-
-
-def build(name):
-    """Builds variant ``name``; returns (name, its bound library)."""
-    out = os.path.join(_build.BUILD_DIR, "variants")
-    os.makedirs(out, exist_ok=True)
-    src, lib = os.path.join(out, f"{name}.cu"), os.path.join(out,
-                                                             f"{name}.so")
-    with open(src, "w") as f:
-        f.write(variant_source(name))
-    r = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", lib, src],
-                       capture_output=True, text=True)
-    if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed for variant {name}:\n{r.stderr}")
-    return name, int8_gemm.bind(ctypes.CDLL(os.path.abspath(lib)))
-
-
 def conv_shapes(dev):
     """[(name, conv, (C, H, W) of its input)] of exp180e's quantized
     convs, from one forward of a window with seeded random weights."""
@@ -142,35 +109,9 @@ def conv_shapes(dev):
     return shapes
 
 
-def cuda_ms(fn, reps=5):
-    """Mean device time of ``fn()`` in ms over ``reps`` calls after one."""
-    fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def main(names):
-    if not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: the variants run on the card")
-    unknown = set(names) - set(VARIANTS)
-    if unknown:
-        raise ValueError(f"no variants {sorted(unknown)}; there are "
-                         f"{list(VARIANTS)}")
+    libs = _variants.build(int8_gemm, "int8_gemm", VARIANTS, names)
     dev = torch.device("cuda", 0)
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, check=True).stdout.splitlines()[0]
-    t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(names)) as pool:
-        libs = dict(pool.map(build, names))
-    print(f"{len(libs)} variants built in {time.perf_counter() - t0:.1f} s;"
-          f" {card}")
     gen = torch.Generator(device=dev).manual_seed(0)
 
     def rand8(*shape):
@@ -183,12 +124,9 @@ def main(names):
         """ms of ``fn()`` under variant ``name``, with "wrong" appended
         (and the variant marked so) unless each (call, want) gives want
         bit for bit."""
-        default, int8_gemm._lib = int8_gemm._lib, lambda: libs[name]
-        try:
+        with _variants.using(int8_gemm, libs[name]):
             ok = all(torch.equal(call(), want) for call, want in wants)
-            ms = cuda_ms(fn)
-        finally:
-            int8_gemm._lib = default
+            ms = _variants.cuda_ms(fn, reps=5, warmup=1)
         if ok or name.startswith("no_"):
             return f"{ms:.3f}"
         wrong.add(name)
@@ -226,7 +164,6 @@ def main(names):
     print(f"| probe {PROBE}^3 | " + " | ".join(
         timed(v, lambda: int8_gemm.int8_mm(a, b), want) for v in names)
         + " |")
-    print(card)
     if wrong:
         raise AssertionError(f"variants {sorted(wrong)} differ from the "
                              f"plain version")
