@@ -4,8 +4,8 @@
     python3 chip_smoke.py
 
 Drives the port's serving paths, audio -> HCQT -> SAUnet:XL windowed
-protocol in float32 and in int8, in phases, and prints each phase's
-result on its own line:
+protocol in float32 and in int8, and its training path (SAUnet:L), in
+phases, and prints each phase's result on its own line:
 
 1. device: requires CUDA, prints the card's name and power limit, and
    sets the float32 parity flags (no TF32);
@@ -58,7 +58,40 @@ result on its own line:
    CPU must be equal; the card's fused output must equal the plain
    dequantize of the card's own sums bit for bit, and the CPU's output
    within 1e-6. The free-running gap of the whole quantized model, card
-   vs CPU, is printed (bin flips cascade at full depth, see PERF.md).
+   vs CPU, is printed (bin flips cascade at full depth, see PERF.md);
+8. train: the training path (no hand-written kernel: autograd and
+   cuDNN), exp180d (SAUnet:L) at full width with weights drawn as the
+   JAX package's ``model.init`` draws them:
+   a. one AdamW step of the recipe at batch 25 (dropout 0 everywhere,
+      BatchNorm in train mode, TF32 off) on a fixed batch of the
+      pipeline, augmentation off, on the card and, in a process of its
+      own with one thread, on the CPU, with the card's max-pool choices
+      replayed (a window whose two largest values lie within the devices'
+      float32 gap would send its gradient elsewhere): loss rel 1e-5; each
+      gradient against the same step in float64 on the card (relative L2,
+      at most 1e-4 or 4 x the CPU's own float32 error: in float32 some of
+      exp180d's gradients are good to a few 1e-2 on either device); the
+      conv biases that feed a BatchNorm 0 in exact arithmetic (1e-4 of
+      their weights'); the parameters after the step equal up to what the
+      two gradients explain through AdamW's first step (1e-6) and the
+      BatchNorm statistics to 1e-5 of their max abs;
+   b. ``perf/fullsize_train_diag.py`` through the port's ``Trainer.fit``:
+      exp180d at lr 5e-4, batch 16, 2 epochs on the learnable synthetic
+      task (3 files of 1200 frames, stride 5), loss history and probe
+      predictions printed; the epoch-2 loss must fall below half of
+      epoch 1's;
+   c. the exp180e lr ladder (5e-4, 1e-4), the same recipe, printed;
+   d. resume: epoch 0's checkpoint restored into a fresh trainer must
+      equal the trainer that wrote it, bit for bit, and epoch 1's first
+      step give the same loss bit for bit; the rest of epoch 1 is printed
+      (the card's backward is not bit-deterministic);
+   e. the registry step timed at batch 25 with the recipe's augmentation
+      (CUDA events, 20 steps after 3 warm-ups), the pipeline alone,
+      peak memory, three pipeline-fed steps profiled (idle share, top
+      kernels), the step's FLOPs (``FlopCounterMode``) and their share
+      of the float32 peak; then one ``run_experiment`` on
+      ``SyntheticCorpus`` (1 epoch) through the test phase: its CSV, its
+      prediction files and 150 finite measures.
 
 Each path's kernel launch counts are reset just before its requests and
 read just after. Each phase's seconds are printed at the end. The line
@@ -70,6 +103,8 @@ script exits non-zero without that line.
 
 import copy
 import json
+import logging
+import os
 import subprocess
 import sys
 import time
@@ -119,6 +154,18 @@ MMA_SYNC_CONV_MS = {
     "upconv3.double_conv.0": 3.665, "upconv3.double_conv.4": 1.413,
     "upconv4.double_conv.0": 14.191, "upconv4.double_conv.4": 22.518,
     "conv2.0": 3.294, "conv3.0": 1.328, "conv4.0": 0.081}
+TRAIN_EXPERIMENT = "exp180d_musicnet_unet_extremelylarge_doubleselfattn"
+TRAIN_BATCH = 25
+# one AdamW step of the exp180d recipe (registry.json)
+TRAIN_STEP_CONFIG = dict(batch_size=TRAIN_BATCH, initial_lr=1e-3, eps=1e-8,
+                         weight_decay=0.01)
+TRAIN_LOSS_RTOL = 1e-5    # card vs CPU, one step, TF32 off
+TRAIN_GRAD_TOL = 1e-4     # rel L2 error of each gradient, float32 vs float64
+GRAD_FACTOR = 4           # ... or this many times the CPU's own error
+TRAIN_PARAM_ATOL = 1e-6   # beyond the gap that the two gradients explain
+TRAIN_STATS_TOL = 1e-5    # of each BatchNorm statistic's max abs
+RESUME_BATCHES = 4        # batches per epoch of the resume check
+TIMED_STEPS = 20
 # (n_fft, octaves) of the serving HCQT's three bases, 0.5, 3 and 5: the
 # hop halves from 512 at each octave
 MAIN_PATH_BASES = ((512, 9), (512, 6), (256, 6))
@@ -922,6 +969,546 @@ def phase_int8_serving(dev, card, model, cpu_model):
     return launches, worst["sums"]
 
 
+# -- the train phase --------------------------------------------------------
+
+def synth_file(n_frames, seed, max_poly=4):
+    """(inputs (6, T, 216), roll (T, 128)) of the learnable synthetic
+    multi-pitch task: a copy of tests/test_learning.py's ``synth_file``
+    (the machine with the card has no JAX). An active MIDI pitch p lights
+    bin 3·(p-24)+1 and its (sub)harmonics' bins across the 6 channels,
+    plus noise."""
+    rng = np.random.RandomState(seed)
+    roll = np.zeros((n_frames, 128), np.float32)
+    t = 0
+    while t < n_frames:
+        dur = rng.randint(10, 40)
+        for p in rng.choice(np.arange(30, 90), rng.randint(1, max_poly + 1),
+                            replace=False):
+            roll[t:t + dur, p] = 1.0
+        t += dur
+    offsets = [-36, 0, 36, 57, 72, 83]
+    x = np.zeros((6, n_frames, 216), np.float32)
+    bins = 3 * (np.arange(128) - 24) + 1
+    for c, off in enumerate(offsets):
+        b = bins + off
+        valid = (b >= 0) & (b < 216)
+        x[c][:, b[valid]] += (1.0 / (1 + c)) * roll[:, valid]
+    x += 0.05 * rng.rand(6, n_frames, 216).astype(np.float32)
+    return x, roll
+
+
+def zero_dropout(model):
+    """Every ``nn.Dropout`` to 0: ``p_dropout=0`` leaves the SAUnet's
+    attention layers at their own 0.2, as in the reference."""
+    from torch import nn
+
+    for m in model.modules():
+        if isinstance(m, nn.Dropout):
+            m.p = 0.0
+    return model
+
+
+def pool_hooks(model, indices, replay):
+    """Forward hooks on every ``nn.MaxPool2d`` of ``model``: record each
+    pool's argmax (``replay=False``) into ``indices``, or take the pooled
+    values at the recorded argmax (``replay=True``), so that the gradient
+    goes where the recording run sent it. A window whose two largest
+    values lie within the two devices' float32 gap would otherwise send
+    its gradient to another element on each. Returns the handles."""
+    import torch.nn.functional as F
+    from torch import nn
+
+    def hook(mod, args, out, name):
+        x = args[0]
+        if replay:
+            idx = indices[name].to(x.device).long()
+            return x.flatten(2).gather(2, idx.flatten(2)).view(idx.shape)
+        _, idx = F.max_pool2d(x, mod.kernel_size, mod.stride, mod.padding,
+                              return_indices=True)
+        indices[name] = idx.int().cpu()
+        return None
+
+    return [m.register_forward_hook(
+        lambda mod, args, out, name=name: hook(mod, args, out, name))
+        for name, m in model.named_modules() if isinstance(m, nn.MaxPool2d)]
+
+
+def train_model(name=TRAIN_EXPERIMENT, **overrides):
+    from multipitch_architectures_tpu_torch.experiments import load_experiment
+
+    return load_experiment(name).build_model(**overrides)
+
+
+def cpu_train_step(path):
+    """The CPU side of the card-vs-CPU step, in a process of its own (one
+    torch thread, beside the card's work): the payload's model and batch
+    at ``path``, the card's max-pool choices replayed; writes the loss,
+    the gradients and the state after the step to ``path + '.cpu'``."""
+    import torch
+
+    from multipitch_architectures_tpu_torch.experiments import build_model
+    from multipitch_architectures_tpu_torch.train import TrainConfig, Trainer
+
+    torch.set_num_threads(1)
+    payload = torch.load(path, weights_only=True)
+    model = zero_dropout(build_model(payload["model_class"],
+                                     payload["model_kwargs"]))
+    model.load_state_dict(payload["start"])
+    trainer = Trainer(model, TrainConfig(**TRAIN_STEP_CONFIG), device="cpu")
+    pool_hooks(model, payload["pools"], replay=True)
+    loss = trainer.train_step(payload["x"], payload["y"])
+    torch.save({"loss": float(loss),
+                "grads": {k: p.grad for k, p in model.named_parameters()},
+                "state": model.state_dict()}, path + ".cpu")
+
+
+def start_step_card_vs_cpu(dev, tmp):
+    """Phase 8a, on the card: one AdamW step of exp180d at full width
+    (dropout 0, BatchNorm in train mode, TF32 off) on a fixed batch of 25
+    of the pipeline, augmentation off; the CPU process for the same step
+    is started, and ``finish_step_card_vs_cpu`` compares."""
+    import multiprocessing
+
+    import torch
+
+    from multipitch_architectures_tpu_torch.data import FileSpec, TrainPipeline
+    from multipitch_architectures_tpu_torch.experiments import (
+        build_model, load_experiment)
+    from multipitch_architectures_tpu_torch.models import init_parameters_flax
+    from multipitch_architectures_tpu_torch.train import TrainConfig, Trainer
+
+    cfg = load_experiment(TRAIN_EXPERIMENT)
+    kwargs = {**cfg.model_kwargs, "p_dropout": 0.0}
+    model = zero_dropout(build_model(cfg.model_class, kwargs))
+    init_parameters_flax(model, torch.Generator().manual_seed(SEED))
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    pipeline = TrainPipeline([FileSpec(*synth_file(1200, seed=s))
+                              for s in range(3)], device=dev)
+    x, y = next(pipeline.batches(SEED, TRAIN_BATCH, shuffle=False))
+    card = Trainer(model, TrainConfig(**TRAIN_STEP_CONFIG), device=dev)
+    pools = {}
+    handles = pool_hooks(card.model, pools, replay=False)
+    loss = float(card.train_step(x, y))
+    for h in handles:
+        h.remove()
+    # the same step in float64 on the card, the same max-pool choices: the
+    # reference each device's float32 gradients are held to
+    model64 = zero_dropout(build_model(cfg.model_class, kwargs)).double()
+    model64.load_state_dict(start)
+    exact = Trainer(model64, TrainConfig(**TRAIN_STEP_CONFIG), device=dev)
+    pool_hooks(exact.model, pools, replay=True)
+    exact.train_step(x.double(), y.double())
+    path = os.path.join(tmp, "step.pt")
+    torch.save({"start": start, "x": x.cpu(), "y": y.cpu(), "pools": pools,
+                "model_class": cfg.model_class, "model_kwargs": kwargs},
+               path)
+    proc = multiprocessing.get_context("spawn").Process(
+        target=cpu_train_step, args=(path,))
+    proc.start()
+    card_out = {"loss": loss, "model": model,
+                "grads": {k: p.grad.cpu() for k, p in
+                          card.model.named_parameters()},
+                "grads64": {k: p.grad.cpu() for k, p in
+                            exact.model.named_parameters()},
+                "state": {k: v.cpu() for k, v in
+                          card.model.state_dict().items()}}
+    return proc, path, card_out
+
+
+def finish_step_card_vs_cpu(proc, path, card, card_name):
+    """Phase 8a, the comparison (targets in the module docstring)."""
+    import torch
+    from torch import nn
+
+    proc.join(timeout=600)
+    if proc.is_alive():
+        proc.kill()
+        proc.join()
+    if proc.exitcode != 0:
+        raise AssertionError(f"the CPU train step failed: exit code "
+                             f"{proc.exitcode}")
+    cpu = torch.load(path + ".cpu", weights_only=True)
+    loss_rel = abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"])
+    # conv biases that feed a train-mode BatchNorm: gradient 0 in exact
+    # arithmetic, rounding noise on both devices
+    bn_fed = set()
+    for name, m in card["model"].named_modules():
+        if isinstance(m, nn.Sequential):
+            kids = list(m.named_children())
+            for (a, ca), (_, cb) in zip(kids, kids[1:]):
+                if isinstance(ca, nn.Conv2d) and isinstance(cb, nn.BatchNorm2d):
+                    bn_fed.add(f"{name}.{a}.bias")
+    # each gradient: card vs CPU (max abs gap over the tensor's max abs),
+    # and each device's float32 against the card's float64 step (relative
+    # L2 error). In float32 some of exp180d's gradients are only good to a
+    # few 1e-2 on either device (the normalisations' cancellations), so the
+    # card is held to the float64 step as closely as the CPU is: within
+    # TRAIN_GRAD_TOL, or GRAD_FACTOR x the CPU's own error where float32
+    # cannot give TRAIN_GRAD_TOL
+    zero_worst, rows = 0.0, []
+    for k, g_cpu in cpu["grads"].items():
+        g_card, g64 = card["grads"][k].double(), card["grads64"][k]
+        g_cpu = g_cpu.double()
+        if k in bn_fed:
+            scale = float(cpu["grads"][k[:-4] + "weight"].abs().max())
+            zero_worst = max(zero_worst, float(g_card.abs().max()) / scale,
+                             float(g_cpu.abs().max()) / scale)
+            continue
+        norm = g64.norm()
+        rows.append((float((g_card - g_cpu).abs().max() / g_cpu.abs().max()),
+                     float((g_card - g64).norm() / norm),
+                     float((g_cpu - g64).norm() / norm), k))
+    grad_worst = max(rows)
+    card_worst = max(rows, key=lambda r: r[1] / max(TRAIN_GRAD_TOL,
+                                                    GRAD_FACTOR * r[2]))
+    card_ok = all(r[1] <= max(TRAIN_GRAD_TOL, GRAD_FACTOR * r[2])
+                  for r in rows)
+    for r in sorted(rows, reverse=True)[:4]:
+        print(f"[train]   gradient {r[3]}: card vs CPU {r[0]:.2e} of max abs;"
+              f" against the float64 step (rel L2) card {r[1]:.2e}, CPU "
+              f"{r[2]:.2e}")
+    # AdamW's first step: p1 = p0·(1 - lr·wd) - lr·g/(|g| + eps), steep in
+    # g where |g| is near eps; the parameters may differ by what the two
+    # gradients explain, lr·|u(g_card) - u(g_cpu)|, plus rounding
+    lr, eps = TRAIN_STEP_CONFIG["initial_lr"], 1e-8
+    param_gap, param_unexplained, stats_worst = 0.0, 0.0, (0.0, "")
+    for k, p_cpu in cpu["state"].items():
+        p_card = card["state"][k]
+        if k.endswith("num_batches_tracked"):
+            continue
+        gap = (p_card.double() - p_cpu.double()).abs()
+        if k.endswith(("running_mean", "running_var")):
+            rel = float(gap.max() / p_cpu.abs().max())
+            stats_worst = max(stats_worst, (rel, k))
+            continue
+        g1, g2 = card["grads"][k].double(), cpu["grads"][k].double()
+        explained = lr * (g1 / (g1.abs() + eps) - g2 / (g2.abs() + eps)).abs()
+        param_gap = max(param_gap, float(gap.max()))
+        param_unexplained = max(param_unexplained,
+                                float((gap - explained).max()))
+    print(f"[train] one exp180d step at batch {TRAIN_BATCH}, card vs CPU "
+          f"(the card's max-pool choices replayed): loss {card['loss']:.6f} "
+          f"vs {cpu['loss']:.6f}, rel {loss_rel:.2e} (<= {TRAIN_LOSS_RTOL:g});"
+          f" worst gradient card vs CPU {grad_worst[0]:.2e} of its max abs "
+          f"at {grad_worst[3]}; against the float64 step, worst card "
+          f"{card_worst[1]:.2e} at {card_worst[3]} where the CPU's is "
+          f"{card_worst[2]:.2e} (<= max({TRAIN_GRAD_TOL:g}, {GRAD_FACTOR} x "
+          f"the CPU's)); "
+          f"BatchNorm-fed conv "
+          f"biases' gradients <= {zero_worst:.2e} of their weights'; "
+          f"parameters after the step max gap {param_gap:.2e}, beyond what "
+          f"the gradients explain {param_unexplained:.2e} (<= "
+          f"{TRAIN_PARAM_ATOL:g}); BatchNorm statistics worst "
+          f"{stats_worst[0]:.2e} of max abs at {stats_worst[1]} (<= "
+          f"{TRAIN_STATS_TOL:g}); {card_name}")
+    if not (loss_rel <= TRAIN_LOSS_RTOL and card_ok
+            and zero_worst <= TRAIN_GRAD_TOL
+            and param_unexplained <= TRAIN_PARAM_ATOL
+            and stats_worst[0] <= TRAIN_STATS_TOL):
+        raise AssertionError("the card's train step differs from the CPU's")
+    return dict(loss_rel=loss_rel, grad_worst=grad_worst[0],
+                card_vs_f64=card_worst[1], param_gap=param_gap)
+
+
+def probe_windows(dev):
+    """16 windows of a held-out synthetic file, log-compressed and padded
+    as the windowed protocol does (perf/fullsize_train_diag.py's probe)."""
+    import torch
+
+    from multipitch_architectures_tpu_torch.data import gather_windows
+    from multipitch_architectures_tpu_torch.eval.inference import _pad_inputs
+
+    x, _ = synth_file(200, seed=7)
+    xp = _pad_inputs(torch.log1p(10.0 * torch.as_tensor(x, device=dev)), 75)
+    return gather_windows(xp, 37 + np.arange(16), 75)
+
+
+def learnable_run(dev, name, lr, files, probe, epochs=2):
+    """perf/fullsize_train_diag.py's ``run`` through the port's
+    ``Trainer.fit``: batch 16, no scheduler, noise 1e-4 and compression
+    10, stride 5. Returns (history, probe mean/std before and after,
+    seconds)."""
+    import torch
+
+    from multipitch_architectures_tpu_torch.data import (AugmentConfig,
+                                                         TrainPipeline)
+    from multipitch_architectures_tpu_torch.train import TrainConfig, Trainer
+
+    pipeline = TrainPipeline(files, context=75, stride=5,
+                             augment=AugmentConfig(noisestd=1e-4,
+                                                   compression=10.0),
+                             target_slice=(24, 96), device=dev)
+    cfg = TrainConfig(max_epochs=epochs, batch_size=16, initial_lr=lr,
+                      loss="bce", es_patience=epochs, scheduler=None,
+                      seed=SEED)
+    trainer = Trainer(train_model(name), cfg, device=dev).init()
+
+    def probe_stats():
+        trainer.model.eval()
+        with torch.no_grad():
+            p = trainer.model(probe).flatten()
+        return float(p.mean()), float(p.std())
+
+    before = probe_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hist = trainer.fit(lambda e, s: pipeline.batches(s, cfg.batch_size))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return hist, before, probe_stats(), seconds
+
+
+def phase_train(dev, card):
+    """The training path: phase 8 of the module docstring. Returns the
+    numbers PERF.md keeps."""
+    import dataclasses
+    import tempfile
+
+    from multipitch_architectures_tpu_torch.data import FileSpec
+    from multipitch_architectures_tpu_torch.experiments import (
+        SyntheticCorpus, load_experiment, run_experiment)
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        proc, path, card_step = start_step_card_vs_cpu(dev, tmp)
+        try:
+            # 8b. the exp180d recipe on the learnable task
+            files = [FileSpec(*synth_file(1200, seed=s)) for s in range(3)]
+            probe = probe_windows(dev)
+            hist, p0, p1, sec = learnable_run(dev, TRAIN_EXPERIMENT, 5e-4,
+                                              files, probe)
+            loss = hist["train_loss"]
+            print(f"[train] exp180d lr 5e-4 on the learnable task (3 files of "
+                  f"1200 frames, stride 5, batch 16, 2 epochs, {sec:.1f} s): "
+                  f"loss {loss[0]:.4f} -> {loss[1]:.4f} (the JAX package on a "
+                  f"TPU: "
+                  f"0.0624 -> 0.0132); probe mean/std {p0[0]:.3f}/{p0[1]:.3f}"
+                  f" -> {p1[0]:.3f}/{p1[1]:.3f}")
+            if not loss[1] < 0.5 * loss[0]:
+                raise AssertionError(f"exp180d did not learn: epoch-2 loss "
+                                     f"{loss[1]:.4f} is not below half of "
+                                     f"{loss[0]:.4f}")
+            out["learnable"] = dict(loss=loss, before=p0, after=p1)
+
+            # 8c. the exp180e lr ladder (VERDICT r5 weak #3), no gate
+            out["ladder"] = {}
+            for lr in (5e-4, 1e-4):
+                hist, p0, p1, sec = learnable_run(
+                    dev, "exp180e_musicnet_unet_insanelylarge_doubleselfattn",
+                    lr, files, probe)
+                loss = hist["train_loss"]
+                out["ladder"][lr] = dict(loss=loss, before=p0, after=p1)
+                print(f"[train] exp180e lr {lr:.0e} ({sec:.1f} s): loss "
+                      f"{loss[0]:.4f} -> {loss[1]:.4f}; probe mean/std "
+                      f"{p0[0]:.3f}/{p0[1]:.3f} -> {p1[0]:.3f}/{p1[1]:.3f} "
+                      f"(the JAX package on a TPU: lr 5e-4 0.5902 -> 0.5793, "
+                      f"0.000/0.000; lr 1e-4 0.1074 -> 0.0107)")
+
+            # 8d. resume
+            resume_check(dev, files, tmp)
+
+            # 8e. the registry step, timed
+            out.update(registry_step(dev, card))
+
+            # then one run_experiment through the test phase
+            cfg = load_experiment(TRAIN_EXPERIMENT)
+            cfg = dataclasses.replace(cfg, train_config=dataclasses.replace(
+                cfg.train_config, max_train_batches=2))
+            corpus = SyntheticCorpus(cfg, frames=600, n_train_files=3)
+            t0 = time.perf_counter()
+            res = run_experiment(cfg, corpus, os.path.join(tmp, "run"),
+                                 logger=logging.getLogger("chip_smoke.run"),
+                                 max_epochs_override=1, device=dev)
+            sec = time.perf_counter() - t0
+            name = cfg.name
+            csv_path = os.path.join(tmp, "run", "results_filewise",
+                                    name + ".csv")
+            preds = sorted(os.listdir(os.path.join(tmp, "run", "predictions",
+                                                   name)))
+            measures = [v for agg in res["subsets"]
+                        for m in ("filewise_mean", "framewise_mean")
+                        for v in agg[m].values()]
+            if not (os.path.isfile(csv_path) and len(preds) == 2
+                    and len(measures) == 3 * 2 * 25
+                    and all(np.isfinite(measures))):
+                raise AssertionError(f"run_experiment: csv "
+                                     f"{os.path.isfile(csv_path)}, "
+                                     f"predictions {preds}, "
+                                     f"{len(measures)} measures")
+            fw = res["subsets"][0]["framewise_mean"]
+            print(f"[train] run_experiment {name} on SyntheticCorpus (3 "
+                  f"train files of 600 frames, 1 epoch, 2 batches, the test "
+                  f"phase's 3 subsets): {sec:.1f} s; CSV and {len(preds)} "
+                  f"prediction files written; {len(measures)} measures "
+                  f"finite; framewise f_measure {fw['f_measure']:.4f}")
+        except BaseException:
+            proc.kill()
+            proc.join()
+            raise
+        out["step"] = finish_step_card_vs_cpu(proc, path, card_step, card)
+    return out
+
+
+def resume_check(dev, files, tmp):
+    """Phase 8d, at a small depth (``RESUME_BATCHES`` batches per epoch):
+    straight, epoch 0 then epoch 1 in one trainer; resumed, epoch 0's
+    checkpoint restored into a fresh trainer, then epoch 1. The recipe's
+    augmentation, dropout 0.2 and validation in train mode all draw.
+    Exact, bit for bit: the restored state (model, BatchNorm statistics,
+    optimizer state, step) and the loss of epoch 1's first step (the same
+    batch, augmentation and dropout draws on the same state through a
+    deterministic forward). The rest of epoch 1 is printed, not bounded:
+    the card's backward is not bit-deterministic (cuDNN, the bilinear
+    upsampling and the overlapping max-pool add their gradients in any
+    order), and AdamW's first steps move weights with gradients near eps
+    by up to lr either way."""
+    import dataclasses
+
+    import torch
+
+    from multipitch_architectures_tpu_torch.data import TrainPipeline
+    from multipitch_architectures_tpu_torch.experiments import load_experiment
+    from multipitch_architectures_tpu_torch.train import TrainConfig, Trainer
+    from multipitch_architectures_tpu_torch.train.trainer import _Checkpointer
+
+    recipe = load_experiment(TRAIN_EXPERIMENT)
+    train_p = TrainPipeline(files, stride=5, augment=recipe.augment,
+                            device=dev)
+    val_p = TrainPipeline(files, stride=recipe.val_stride, device=dev)
+    cfg = TrainConfig(max_epochs=1, batch_size=16, initial_lr=1e-3,
+                      scheduler=None, es_patience=2, seed=SEED,
+                      max_train_batches=RESUME_BATCHES,
+                      val_in_train_mode=True)
+
+    def batches(epoch, seed):
+        return train_p.batches(seed, cfg.batch_size)
+
+    def val(epoch, seed):
+        return val_p.batches(seed, recipe.val_batch_size, shuffle=False,
+                             drop_remainder=False)
+
+    def recorded(trainer):
+        losses, step = [], trainer.train_step
+
+        def train_step(*args):
+            losses.append(step(*args))
+            return losses[-1]
+
+        trainer.train_step = train_step
+        return losses
+
+    ck = os.path.join(tmp, "resume")
+    straight = Trainer(train_model(), cfg, device=dev).init()
+    metric = straight.fit(batches, val, checkpoint_dir=ck)["val_loss"][0]
+    two = dataclasses.replace(cfg, max_epochs=2)
+    resumed = Trainer(train_model(), two, device=dev)
+    epoch, resumed.lr, saved = _Checkpointer(ck).restore(resumed)
+    straight.config = two
+    a, b = straight.model.state_dict(), resumed.model.state_dict()
+    oa, ob = straight.optimizer.state_dict(), resumed.optimizer.state_dict()
+    state_equal = (epoch == 0 and saved == metric
+                   and straight.step == resumed.step
+                   and all(torch.equal(a[k], b[k]) for k in a)
+                   and all(torch.equal(oa["state"][i][k].cpu(),
+                                       ob["state"][i][k].cpu())
+                           for i in oa["state"] for k in oa["state"][i]))
+    la, lb = recorded(straight), recorded(resumed)
+    ha = straight.fit(batches, val, start_epoch=1, initial_best=metric)
+    hb = resumed.fit(batches, val, start_epoch=1, initial_best=saved)
+    first_equal = torch.equal(la[0], lb[0])
+    a, b = straight.model.state_dict(), resumed.model.state_dict()
+    worst = max((float((a[k].double() - b[k].double()).abs().max()
+                       / a[k].double().abs().max().clamp(min=1e-30)), k)
+                for k in a if a[k].is_floating_point())
+    print(f"[train] resume ({RESUME_BATCHES} batches per epoch, the recipe's "
+          f"augmentation, dropout, validation in train mode): restored state "
+          f"{'equal' if state_equal else 'DIFFERENT'} bit for bit; epoch 1's "
+          f"first step loss {float(la[0]):.6f} vs {float(lb[0]):.6f} "
+          f"({'equal' if first_equal else 'DIFFERENT'}); after epoch 1: train "
+          f"loss {ha['train_loss'][0]:.6f} vs {hb['train_loss'][0]:.6f}, val "
+          f"loss {ha['val_loss'][0]:.6f} vs {hb['val_loss'][0]:.6f}, worst "
+          f"state gap {worst[0]:.2e} of max abs at {worst[1]} (the card's "
+          f"non-deterministic backward, not bounded)")
+    if not (state_equal and first_equal):
+        raise AssertionError("resume is not exact on the card")
+
+
+def registry_step(dev, card):
+    """Phase 8e: exp180d at batch 25 with the registry's augmentation:
+    train_step time, the pipeline alone, peak memory, idle share and top
+    kernels, FLOPs."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from multipitch_architectures_tpu_torch.data import FileSpec, TrainPipeline
+    from multipitch_architectures_tpu_torch.experiments import load_experiment
+    from multipitch_architectures_tpu_torch.train import Trainer
+
+    cfg = load_experiment(TRAIN_EXPERIMENT)
+    files = [FileSpec(*synth_file(3000, seed=10 + s)) for s in range(8)]
+    pipeline = TrainPipeline(files, context=cfg.context,
+                             stride=cfg.train_stride, augment=cfg.augment,
+                             device=dev)
+    trainer = Trainer(cfg.build_model(), cfg.train_config, device=dev).init()
+    bs = cfg.train_config.batch_size
+    batches = list(pipeline.batches(SEED, bs))
+    n = len(batches)
+    step_i = iter(range(10 ** 6))
+
+    def step():
+        trainer.train_step(*batches[next(step_i) % n])
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    step_ms = cuda_ms(step, reps=TIMED_STEPS, warmup=3)
+    peak = torch.cuda.max_memory_allocated(dev)
+
+    def epoch():
+        for _ in pipeline.batches(SEED + 1, bs):
+            pass
+
+    epoch()
+    pipe_ms = cuda_ms(epoch, reps=3, warmup=0) / n
+    pipe_host_ms = host_ms(epoch) / n
+
+    def fed_steps():
+        for i, (x, y) in enumerate(pipeline.batches(SEED + 2, bs)):
+            trainer.train_step(x, y)
+            if i == 2:
+                break
+
+    idle, wall, top = device_profile(fed_steps, top=6)
+    fc = FlopCounterMode(display=False)
+    with fc:
+        step()
+    flops = fc.get_total_flops()
+    share = flops / (step_ms / 1e3) / F32_FLOP_PER_S
+    # diagnostic: cuDNN's own algorithm search in place of its heuristics
+    torch.backends.cudnn.benchmark = True
+    try:
+        bench_ms = cuda_ms(step, reps=TIMED_STEPS, warmup=3)
+    finally:
+        torch.backends.cudnn.benchmark = False
+    print(f"[train] exp180d registry step at batch {bs} (noise 1e-4, EQ 20, "
+          f"transposition 5, tuning, compression 10; TF32 off): "
+          f"{step_ms:.2f} ms per train_step (CUDA events, {TIMED_STEPS} steps"
+          f" after 3 warm-ups); pipeline alone {pipe_ms:.3f} ms per batch "
+          f"({bs / pipe_ms * 1e3:,.0f} windows/s; {n} batches per epoch; "
+          f"host {pipe_host_ms:.3f} ms per batch); "
+          f"peak device memory {peak / 2**30:.2f} GiB; {flops / 1e12:.3f} "
+          f"TFLOP per step (FlopCounterMode) = {share:.1%} of the float32 "
+          f"peak {F32_FLOP_PER_S / 1e12:.0f} TFLOP/s; {card}")
+    print(f"[train] diagnostic: with torch.backends.cudnn.benchmark on "
+          f"(cuDNN times its algorithms), {bench_ms:.2f} ms per train_step "
+          f"against {step_ms:.2f}; {card}")
+    idle_txt = "not measured (no device kernels in the trace)" \
+        if idle is None else f"{idle:.2%}"
+    print(f"[train] 3 steps fed by the pipeline, profiled: wall "
+          f"{wall * 1e3:.1f} ms, device idle {idle_txt}; top kernels: "
+          + "; ".join(f"{k} {ms:.2f} ms" for k, ms in top))
+    return dict(step_ms=step_ms, pipe_ms=pipe_ms, peak=peak, flops=flops,
+                share=share, idle=idle, top=top, bench_ms=bench_ms)
+
+
 def main():
     t0 = time.perf_counter()
     seconds = {}
@@ -945,8 +1532,21 @@ def main():
     gemm_launches, sums_err = phase_int8_serving(dev, card, model, cpu_model)
     lap("int8-serving")
     gemm["max_abs_err"] = max(gemm["max_abs_err"], sums_err)
+    del model, cpu_model
 
     import torch
+
+    from multipitch_architectures_tpu_torch.ops.cqt_octave import cqt_octaves
+    from multipitch_architectures_tpu_torch.ops.int8_gemm import (
+        int8_conv2d_dequant)
+
+    int8_conv2d_dequant.launches = cqt_octaves.launches = 0
+    phase_train(dev, card)
+    print(f"[train] the training path launched the CQT kernel "
+          f"{cqt_octaves.launches} times and the int8 GEMM "
+          f"{int8_conv2d_dequant.launches} times: it has no hand-written "
+          f"kernel (its backward runs through autograd and cuDNN)")
+    lap("train")
 
     print("[phases] seconds: " + ", ".join(f"{k} {v:.1f}"
                                            for k, v in seconds.items()))

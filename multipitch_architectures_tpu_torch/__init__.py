@@ -6,20 +6,23 @@ counterpart is easy to find, and its public layouts: HCQT ``(6, T, 216)``,
 model input NCHW ``(B, 6, 75, 216)``, windowed output ``(B, 1, 1, 72)``.
 
 - ``dsp``         audio -> multirate CQT -> efficient 6-channel HCQT
-- ``data``        stride-1 context windows
+- ``data``        context windows, the augmentation chain and the
+                  device-resident training pipeline
 - ``ops``         attention, up-concat, the CQT octave kernel
                   (``csrc/cqt_octave.cu``) and the int8 GEMM
                   (``csrc/int8_gemm.cu``), built with nvcc at first use
 - ``models``      SAUnet and its layers, and the bridge from the JAX
                   package's weights
+- ``train``       AdamW trainer, losses, schedulers, early stopping
 - ``experiments`` the experiment registry (read from the JAX package's
-                  ``registry.json`` as data)
+                  ``registry.json`` as data), the runner and its CLI
 - ``eval``        the windowed framewise inference protocol, its int8
                   (W8A8) serving mode with the drift gate, and the
                   evaluation measures
 
 It imports torch and never JAX. Functions run where their tensors lie;
-entry points take an explicit ``device``.
+entry points take a ``device``, run on the card by default, and raise
+without one unless given ``device="cpu"``.
 """
 
 import torch
@@ -37,3 +40,16 @@ def set_f32_parity() -> None:
     """
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device of an entry point: ``device`` when given, else the card.
+    Without a card and without ``device`` it raises: nothing falls back
+    to the CPU."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("this entry point runs on the card by default "
+                           "and there is none: pass device='cpu' to run on "
+                           "the CPU")
+    return torch.device("cuda")

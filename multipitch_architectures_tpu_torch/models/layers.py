@@ -83,19 +83,24 @@ class TransformerEncLayer(nn.Module):
     """Post-norm transformer encoder over the flattened (H·W) tokens of a
     bottleneck map, with the reference's extra Q/K/V/O projections around
     the attention core (unet_cnns.py:107-159). Input and output NCHW
-    ``(B, E, H, W)``. ``pos_encoding`` is None or ``'sinusoidal'``; the
-    table is computed, not stored, as in the reference."""
+    ``(B, E, H, W)``. ``pos_encoding`` is None, ``'sinusoidal'`` (a table
+    computed, not stored, as in the reference) or ``'learnable'`` (a
+    ``(max_len, E)`` parameter ``pe``)."""
 
     def __init__(self, embed_dim: int, num_heads: int = 8, mlp_dim: int = 512,
                  p_dropout: float = 0.2, pos_encoding: Optional[str] = None,
                  attn_mode: str = "cross_batch", max_len: int = 600):
         super().__init__()
-        if pos_encoding not in (None, "sinusoidal"):
+        if pos_encoding not in (None, "sinusoidal", "learnable"):
             raise ValueError(f"unsupported pos_encoding {pos_encoding!r}")
         e = embed_dim
         self.pos_encoding = pos_encoding
-        self.register_buffer("pe", torch.from_numpy(
-            sinusoidal_positional_encoding(max_len, e)), persistent=False)
+        if pos_encoding == "learnable":
+            self.pe = nn.Parameter(torch.empty(max_len, e))
+            _flax_kaiming_uniform(self.pe, None)
+        else:
+            self.register_buffer("pe", torch.from_numpy(
+                sinusoidal_positional_encoding(max_len, e)), persistent=False)
         self.q_linear = nn.Linear(e, e, bias=False)
         self.k_linear = nn.Linear(e, e, bias=False)
         self.v_linear = nn.Linear(e, e, bias=False)
@@ -110,9 +115,10 @@ class TransformerEncLayer(nn.Module):
     def forward(self, x):
         b, e, h, w = x.shape
         tokens = x.flatten(2).transpose(1, 2)             # (B, H·W, E)
-        if self.pos_encoding == "sinusoidal":
+        if self.pos_encoding is not None:
             pe = self.pe
-            if tokens.shape[1] > pe.shape[0]:
+            if self.pos_encoding == "sinusoidal" and \
+                    tokens.shape[1] > pe.shape[0]:
                 # the table is analytic: extend it for longer maps
                 pe = torch.from_numpy(sinusoidal_positional_encoding(
                     tokens.shape[1], e)).to(tokens.device)
@@ -175,3 +181,47 @@ def init_parameters(model: nn.Module, generator: torch.Generator):
             nn.init.zeros_(m.in_proj_bias)
         elif isinstance(m, (nn.LayerNorm, nn.BatchNorm2d)):
             m.reset_parameters()
+
+
+def _flax_kaiming_uniform(p, generator):
+    """flax ``kaiming_uniform`` of a 2-D ``(rows, cols)`` parameter:
+    U(±sqrt(6 / rows)), flax taking axis -2 as fan-in."""
+    bound = math.sqrt(6.0 / p.shape[0])
+    nn.init.uniform_(p, -bound, bound, generator=generator)
+
+
+@torch.no_grad()
+def init_parameters_flax(model: nn.Module, generator: torch.Generator):
+    """What the JAX package's ``model.init`` draws, drawn from
+    ``generator`` (the trainer's initializer; the values differ, the
+    distributions are flax's):
+
+    - convs and linears, where the JAX module declares no initializer:
+      flax's default LeCun truncated normal, std sqrt(1/fan_in)/0.8796
+      cut at ±2 of that std, and zero biases;
+    - attention ``in_proj`` and ``out_proj``: xavier-uniform weights and
+      zero biases (JAX ``ops/attention.py:76-83``);
+    - a learned positional encoding ``pe``: flax ``kaiming_uniform``
+      (JAX ``models/layers.py:232``);
+    - norms: unit scale and zero shift; BatchNorm statistics (0, 1).
+    """
+    attention = [m for m in model.modules()
+                 if isinstance(m, TorchMultiheadAttention)]
+    skip = {id(m.out_proj) for m in attention}
+    for m in model.modules():
+        if isinstance(m, (nn.Conv2d, nn.Linear)) and id(m) not in skip:
+            std = math.sqrt(1.0 / m.weight[0].numel()) / 0.87962566103423978
+            nn.init.trunc_normal_(m.weight, 0.0, std, -2 * std, 2 * std,
+                                  generator=generator)
+            if m.bias is not None:
+                nn.init.zeros_(m.bias)
+        elif isinstance(m, (nn.LayerNorm, nn.BatchNorm2d)):
+            m.reset_parameters()
+        elif isinstance(m, TransformerEncLayer) and \
+                m.pos_encoding == "learnable":
+            _flax_kaiming_uniform(m.pe, generator)
+    for m in attention:
+        nn.init.xavier_uniform_(m.in_proj_weight, generator=generator)
+        nn.init.zeros_(m.in_proj_bias)
+        nn.init.xavier_uniform_(m.out_proj.weight, generator=generator)
+        nn.init.zeros_(m.out_proj.bias)

@@ -71,6 +71,8 @@ def _transformer_enc(p, key, out):
     _dense(p["mlp2"], f"{key}.mlp.2", out)
     _ln(p["layernorm1"], f"{key}.layernorm1", out)
     _ln(p["layernorm2"], f"{key}.layernorm2", out)
+    if "pe" in p:                                     # learned encoding
+        out[f"{key}.pe"] = np.asarray(p["pe"])
 
 
 def state_dict_from_flax(variables, convdrop: Optional[float] = 0.0
