@@ -4,8 +4,10 @@
     python3 chip_smoke.py
 
 Drives the port's serving paths, audio -> HCQT -> SAUnet:XL windowed
-protocol in float32 and in int8, and its training path (SAUnet:L), in
-phases, and prints each phase's result on its own line:
+protocol in float32 and in int8, its training path (SAUnet:L), and the
+rest of the registry's model zoo (CNN, DRCNN, Unet, SAUSnet, BLUnet and
+PUnet: serving, dense serving of the CNNs, training), in phases, and
+prints each phase's result on its own line:
 
 1. device: requires CUDA, prints the card's name and power limit, and
    sets the float32 parity flags (no TF32);
@@ -75,23 +77,48 @@ phases, and prints each phase's result on its own line:
       their weights'); the parameters after the step equal up to what the
       two gradients explain through AdamW's first step (1e-6) and the
       BatchNorm statistics to 1e-5 of their max abs;
-   b. ``perf/fullsize_train_diag.py`` through the port's ``Trainer.fit``:
+   b. ``perf/fullsize_train_diag.py`` through the port's ``Trainer.fit``
+      (``deterministic`` off: learning, not resume, is checked):
       exp180d at lr 5e-4, batch 16, 2 epochs on the learnable synthetic
       task (3 files of 1200 frames, stride 5), loss history and probe
       predictions printed; the epoch-2 loss must fall below half of
       epoch 1's;
    c. the exp180e lr ladder (5e-4, 1e-4), the same recipe, printed;
-   d. resume: epoch 0's checkpoint restored into a fresh trainer must
-      equal the trainer that wrote it, bit for bit, and epoch 1's first
-      step give the same loss bit for bit; the rest of epoch 1 is printed
-      (the card's backward is not bit-deterministic);
+   d. resume, with ``TrainConfig.deterministic`` (the default): epoch 0's
+      checkpoint restored into a fresh trainer must equal the trainer that
+      wrote it, bit for bit, and the whole resumed epoch 1 must repeat the
+      straight run's bit for bit: every step's loss, the epoch's train and
+      validation losses, then every weight, BatchNorm statistic and
+      optimizer state;
    e. the registry step timed at batch 25 with the recipe's augmentation
-      (CUDA events, 20 steps after 3 warm-ups), the pipeline alone,
+      (CUDA events, 20 steps after 3 warm-ups), with ``deterministic`` on
+      and off, the pipeline alone,
       peak memory, three pipeline-fed steps profiled (idle share, top
       kernels), the step's FLOPs (``FlopCounterMode``) and their share
       of the float32 peak; then one ``run_experiment`` on
       ``SyntheticCorpus`` (1 epoch) through the test phase: its CSV, its
-      prediction files and 150 finite measures.
+      prediction files and 150 finite measures;
+9. zoo: one registry configuration per class of the zoo besides the
+   SAUnet, at full width and depth, built through ``load_experiment`` with
+   the weights that the JAX package's ``model.init`` draws (seeded): CNN:M
+   (exp126c), DRCNN (exp128c), Unet:XL (exp160f), SAUSnet:XL (exp181f,
+   ``cross_batch:50``), BLUnet:L (exp186d) and PUnet:XL (exp195f). Each
+   must have its logged parameter count; answers a warm-up request and a
+   10-s request through ``hcqt`` and ``predict_framewise(batch_size=250,
+   group=50 for the attention model)``, (T, 72), finite and within [0, 1]
+   (the PUnet's ``return_aux`` polyphony logits (T, 24), finite), with one
+   CQT kernel launch per request, its wall time, real-time factor and peak
+   device memory printed; the two CNNs also serve the 10-s request through
+   ``predict_dense`` and ``predict_dense_chunked(chunk=512)``, each timed,
+   its max abs gap to the windowed output printed; and 4 windows run on
+   the card and, in a process of its own with one thread, on the CPU
+   (atol 1e-4, the PUnet's logits included). Then one train step at batch
+   25 of DRCNN (bce) and of PUnet:XL (multitask), dropout 0, on the card
+   against a CPU process started with the script (a full-width step takes
+   minutes on one core), the CPU's max-pool choices replayed on the card:
+   loss rel 1e-5; each step timed (CUDA events, 20 steps after 3
+   warm-ups) with ``deterministic`` on and off, with its FLOPs and their
+   share of the float32 peak.
 
 Each path's kernel launch counts are reset just before its requests and
 read just after. Each phase's seconds are printed at the end. The line
@@ -166,6 +193,25 @@ TRAIN_PARAM_ATOL = 1e-6   # beyond the gap that the two gradients explain
 TRAIN_STATS_TOL = 1e-5    # of each BatchNorm statistic's max abs
 RESUME_BATCHES = 4        # batches per epoch of the resume check
 TIMED_STEPS = 20
+# the zoo phase: (registry entry, the paper's name, logged parameter
+# count; tests/test_torch_zoo.py): SAUSnet:XL's log misses its four
+# attention cores of 66,048 parameters, the identity residual adds none to
+# DCNN:L's 4,814,683, and Unet:XL's count is the JAX model's
+ZOO = (
+    ("exp126c_musicnet_cnn_verywide", "CNN:M", 1_813_293),
+    ("exp128c_musicnet_cnn_deepresnetverywide", "DRCNN", 4_814_683),
+    ("exp160f_musicnet_unet_veryverylarge", "Unet:XL", 14_251_699),
+    ("exp181f_musicnet_unet_intermedlarge_doubleselfattn_twolayers",
+     "SAUSnet:XL", 14_435_647 + 4 * 66_048),
+    ("exp186d_musicnet_unet_extremelylarge_blstm", "BLUnet:L", 9_649_003),
+    ("exp195f_musicnet_unet_extremelylarge_polyphony_softmax", "PUnet:XL",
+     14_597_963),
+)
+ZOO_PUNET = ZOO[5][0]
+ZOO_DENSE = (ZOO[0][0], ZOO[1][0])          # the CNN family serves dense too
+ZOO_TRAIN = (ZOO[1][0], ZOO_PUNET)          # bce, multitask
+ZOO_SECONDS = 10.0
+ZOO_CHECK_WINDOWS = 4
 # (n_fft, octaves) of the serving HCQT's three bases, 0.5, 3 and 5: the
 # hop halves from 512 at each octave
 MAIN_PATH_BASES = ((512, 9), (512, 6), (256, 6))
@@ -1226,8 +1272,8 @@ def probe_windows(dev):
 def learnable_run(dev, name, lr, files, probe, epochs=2):
     """perf/fullsize_train_diag.py's ``run`` through the port's
     ``Trainer.fit``: batch 16, no scheduler, noise 1e-4 and compression
-    10, stride 5. Returns (history, probe mean/std before and after,
-    seconds)."""
+    10, stride 5, ``deterministic`` off. Returns (history, probe mean/std
+    before and after, seconds)."""
     import torch
 
     from multipitch_architectures_tpu_torch.data import (AugmentConfig,
@@ -1238,9 +1284,11 @@ def learnable_run(dev, name, lr, files, probe, epochs=2):
                              augment=AugmentConfig(noisestd=1e-4,
                                                    compression=10.0),
                              target_slice=(24, 96), device=dev)
+    # learning, not resume, is checked here: cuDNN's fast algorithms (the
+    # deterministic ones cost 3x per step, phase 8e)
     cfg = TrainConfig(max_epochs=epochs, batch_size=16, initial_lr=lr,
                       loss="bce", es_patience=epochs, scheduler=None,
-                      seed=SEED)
+                      seed=SEED, deterministic=False)
     trainer = Trainer(train_model(name), cfg, device=dev).init()
 
     def probe_stats():
@@ -1353,15 +1401,12 @@ def resume_check(dev, files, tmp):
     """Phase 8d, at a small depth (``RESUME_BATCHES`` batches per epoch):
     straight, epoch 0 then epoch 1 in one trainer; resumed, epoch 0's
     checkpoint restored into a fresh trainer, then epoch 1. The recipe's
-    augmentation, dropout 0.2 and validation in train mode all draw.
-    Exact, bit for bit: the restored state (model, BatchNorm statistics,
-    optimizer state, step) and the loss of epoch 1's first step (the same
-    batch, augmentation and dropout draws on the same state through a
-    deterministic forward). The rest of epoch 1 is printed, not bounded:
-    the card's backward is not bit-deterministic (cuDNN, the bilinear
-    upsampling and the overlapping max-pool add their gradients in any
-    order), and AdamW's first steps move weights with gradients near eps
-    by up to lr either way."""
+    augmentation, dropout 0.2 and validation in train mode all draw; the
+    trainers run with ``TrainConfig.deterministic`` (the default). Exact,
+    bit for bit: the restored state (model, BatchNorm statistics,
+    optimizer state, step), every loss of the resumed epoch 1 (each train
+    step's, the epoch's train and validation losses), then every weight,
+    BatchNorm statistic and optimizer state after it."""
     import dataclasses
 
     import torch
@@ -1397,6 +1442,16 @@ def resume_check(dev, files, tmp):
         trainer.train_step = train_step
         return losses
 
+    def same_state(a, b):
+        sa, sb = a.model.state_dict(), b.model.state_dict()
+        oa, ob = a.optimizer.state_dict(), b.optimizer.state_dict()
+        return (a.step == b.step and sa.keys() == sb.keys()
+                and all(torch.equal(sa[k], sb[k]) for k in sa)
+                and oa["state"].keys() == ob["state"].keys()
+                and all(torch.equal(oa["state"][i][k].cpu(),
+                                    ob["state"][i][k].cpu())
+                        for i in oa["state"] for k in oa["state"][i]))
+
     ck = os.path.join(tmp, "resume")
     straight = Trainer(train_model(), cfg, device=dev).init()
     metric = straight.fit(batches, val, checkpoint_dir=ck)["val_loss"][0]
@@ -1404,39 +1459,45 @@ def resume_check(dev, files, tmp):
     resumed = Trainer(train_model(), two, device=dev)
     epoch, resumed.lr, saved = _Checkpointer(ck).restore(resumed)
     straight.config = two
-    a, b = straight.model.state_dict(), resumed.model.state_dict()
-    oa, ob = straight.optimizer.state_dict(), resumed.optimizer.state_dict()
     state_equal = (epoch == 0 and saved == metric
-                   and straight.step == resumed.step
-                   and all(torch.equal(a[k], b[k]) for k in a)
-                   and all(torch.equal(oa["state"][i][k].cpu(),
-                                       ob["state"][i][k].cpu())
-                           for i in oa["state"] for k in oa["state"][i]))
+                   and same_state(straight, resumed))
     la, lb = recorded(straight), recorded(resumed)
     ha = straight.fit(batches, val, start_epoch=1, initial_best=metric)
     hb = resumed.fit(batches, val, start_epoch=1, initial_best=saved)
-    first_equal = torch.equal(la[0], lb[0])
+    steps_equal = len(la) == len(lb) == RESUME_BATCHES and all(
+        torch.equal(a, b) for a, b in zip(la, lb))
+    epoch_equal = (ha["train_loss"] == hb["train_loss"]
+                   and ha["val_loss"] == hb["val_loss"])
+    after_equal = same_state(straight, resumed)
     a, b = straight.model.state_dict(), resumed.model.state_dict()
     worst = max((float((a[k].double() - b[k].double()).abs().max()
                        / a[k].double().abs().max().clamp(min=1e-30)), k)
                 for k in a if a[k].is_floating_point())
+
+    def word(ok):
+        return "equal" if ok else "DIFFERENT"
+
     print(f"[train] resume ({RESUME_BATCHES} batches per epoch, the recipe's "
-          f"augmentation, dropout, validation in train mode): restored state "
-          f"{'equal' if state_equal else 'DIFFERENT'} bit for bit; epoch 1's "
-          f"first step loss {float(la[0]):.6f} vs {float(lb[0]):.6f} "
-          f"({'equal' if first_equal else 'DIFFERENT'}); after epoch 1: train "
-          f"loss {ha['train_loss'][0]:.6f} vs {hb['train_loss'][0]:.6f}, val "
-          f"loss {ha['val_loss'][0]:.6f} vs {hb['val_loss'][0]:.6f}, worst "
-          f"state gap {worst[0]:.2e} of max abs at {worst[1]} (the card's "
-          f"non-deterministic backward, not bounded)")
-    if not (state_equal and first_equal):
+          f"augmentation, dropout, validation in train mode, deterministic "
+          f"{cfg.deterministic}): restored state {word(state_equal)} bit for "
+          f"bit; epoch 1's {len(lb)} step losses {word(steps_equal)} "
+          f"(first {float(la[0]):.6f} vs {float(lb[0]):.6f}, last "
+          f"{float(la[-1]):.6f} vs {float(lb[-1]):.6f}); train loss "
+          f"{ha['train_loss'][0]:.6f} vs {hb['train_loss'][0]:.6f}, val loss "
+          f"{ha['val_loss'][0]:.6f} vs {hb['val_loss'][0]:.6f} "
+          f"({word(epoch_equal)}); weights, statistics and optimizer state "
+          f"after epoch 1 {word(after_equal)} (worst gap {worst[0]:.2e} of "
+          f"max abs at {worst[1]})")
+    if not (state_equal and steps_equal and epoch_equal and after_equal):
         raise AssertionError("resume is not exact on the card")
 
 
 def registry_step(dev, card):
     """Phase 8e: exp180d at batch 25 with the registry's augmentation:
-    train_step time, the pipeline alone, peak memory, idle share and top
-    kernels, FLOPs."""
+    train_step time with ``deterministic`` on (the default) and off, the
+    pipeline alone, peak memory, idle share and top kernels, FLOPs."""
+    import dataclasses
+
     import torch
     from torch.utils.flop_counter import FlopCounterMode
 
@@ -1461,6 +1522,12 @@ def registry_step(dev, card):
     torch.cuda.reset_peak_memory_stats(dev)
     step_ms = cuda_ms(step, reps=TIMED_STEPS, warmup=3)
     peak = torch.cuda.max_memory_allocated(dev)
+    # the price of bit-exact resume: the same step without
+    # cudnn.deterministic (the trainer reads its config at each step)
+    det = trainer.config
+    trainer.config = dataclasses.replace(det, deterministic=False)
+    free_ms = cuda_ms(step, reps=TIMED_STEPS, warmup=3)
+    trainer.config = det
 
     def epoch():
         for _ in pipeline.batches(SEED + 1, bs):
@@ -1490,8 +1557,10 @@ def registry_step(dev, card):
         torch.backends.cudnn.benchmark = False
     print(f"[train] exp180d registry step at batch {bs} (noise 1e-4, EQ 20, "
           f"transposition 5, tuning, compression 10; TF32 off): "
-          f"{step_ms:.2f} ms per train_step (CUDA events, {TIMED_STEPS} steps"
-          f" after 3 warm-ups); pipeline alone {pipe_ms:.3f} ms per batch "
+          f"{step_ms:.2f} ms per train_step with deterministic on, "
+          f"{free_ms:.2f} ms with it off ({step_ms / free_ms - 1:+.1%}) "
+          f"(CUDA events, {TIMED_STEPS} steps after 3 warm-ups); pipeline "
+          f"alone {pipe_ms:.3f} ms per batch "
           f"({bs / pipe_ms * 1e3:,.0f} windows/s; {n} batches per epoch; "
           f"host {pipe_host_ms:.3f} ms per batch); "
           f"peak device memory {peak / 2**30:.2f} GiB; {flops / 1e12:.3f} "
@@ -1505,11 +1574,302 @@ def registry_step(dev, card):
     print(f"[train] 3 steps fed by the pipeline, profiled: wall "
           f"{wall * 1e3:.1f} ms, device idle {idle_txt}; top kernels: "
           + "; ".join(f"{k} {ms:.2f} ms" for k, ms in top))
-    return dict(step_ms=step_ms, pipe_ms=pipe_ms, peak=peak, flops=flops,
-                share=share, idle=idle, top=top, bench_ms=bench_ms)
+    return dict(step_ms=step_ms, free_ms=free_ms, pipe_ms=pipe_ms, peak=peak,
+                flops=flops, share=share, idle=idle, top=top,
+                bench_ms=bench_ms)
+
+
+# -- the zoo phase ----------------------------------------------------------
+
+def zoo_model(name, **overrides):
+    """A registry entry's model at full width, built through
+    ``load_experiment``, with the weights that the JAX package's
+    ``model.init`` draws, drawn from a generator seeded ``SEED`` (so the
+    card and the CPU processes build the same model); attention models in
+    ``cross_batch:GROUP`` groups. Returns (model, attention group or
+    None)."""
+    import inspect
+
+    import torch
+
+    from multipitch_architectures_tpu_torch.experiments import (
+        MODEL_REGISTRY, load_experiment)
+    from multipitch_architectures_tpu_torch.models import init_parameters_flax
+
+    cfg = load_experiment(name)
+    group = None
+    if "attn_mode" in inspect.signature(
+            MODEL_REGISTRY[cfg.model_class]).parameters:
+        group = GROUP
+        overrides = {**overrides, "attn_mode": f"cross_batch:{GROUP}"}
+    model = cfg.build_model(**overrides)
+    init_parameters_flax(model, torch.Generator().manual_seed(SEED))
+    return model, group
+
+
+def zoo_windows():
+    """ZOO_CHECK_WINDOWS windows of a synthetic file, log-compressed and
+    padded as the windowed protocol does, on the CPU: the same in every
+    process."""
+    import torch
+
+    from multipitch_architectures_tpu_torch.data import gather_windows
+    from multipitch_architectures_tpu_torch.eval.inference import _pad_inputs
+
+    x, _ = synth_file(120, seed=11)
+    xp = _pad_inputs(torch.log1p(10.0 * torch.from_numpy(x)), 75)
+    return gather_windows(xp, 37 + 30 * np.arange(ZOO_CHECK_WINDOWS), 75)
+
+
+def zoo_cpu_forwards(path):
+    """The CPU side of the zoo's card-vs-CPU forwards, in a process of its
+    own with one thread: each configuration's eval forward of
+    ``zoo_windows()``, written to ``path``."""
+    import torch
+
+    torch.set_num_threads(1)
+    x, out = zoo_windows(), {}
+    for name, _, _ in ZOO:
+        model = zoo_model(name)[0].eval()
+        with torch.no_grad():
+            y = model(x)
+        out[name] = list(y) if isinstance(y, tuple) else [y]
+    torch.save(out, path)
+
+
+def zoo_train_batch(device):
+    """Phase 8a's fixed batch of 25, augmentation off, on ``device``."""
+    from multipitch_architectures_tpu_torch.data import FileSpec, TrainPipeline
+
+    pipeline = TrainPipeline([FileSpec(*synth_file(1200, seed=s))
+                              for s in range(3)], device=device)
+    return next(pipeline.batches(SEED, TRAIN_BATCH, shuffle=False))
+
+
+def zoo_train_model(name):
+    """``name`` for the step check: p_dropout 0 and every dropout 0."""
+    return zero_dropout(zoo_model(name, p_dropout=0.0)[0])
+
+
+def zoo_train_config(name):
+    from multipitch_architectures_tpu_torch.experiments import load_experiment
+    from multipitch_architectures_tpu_torch.train import TrainConfig
+
+    return TrainConfig(**TRAIN_STEP_CONFIG,
+                       loss=load_experiment(name).train_config.loss)
+
+
+def zoo_cpu_step(name, path):
+    """The CPU side of a zoo train step, in a process of its own with one
+    thread, started when the script starts (a step at full width takes
+    minutes on one core): one AdamW step of ``name`` on the fixed batch,
+    its max-pool choices recorded for the card to replay; writes the loss,
+    the batch and the choices to ``path``."""
+    import torch
+
+    from multipitch_architectures_tpu_torch.train import Trainer
+
+    torch.set_num_threads(1)
+    x, y = zoo_train_batch("cpu")
+    trainer = Trainer(zoo_train_model(name), zoo_train_config(name),
+                      device="cpu")
+    pools = {}
+    pool_hooks(trainer.model, pools, replay=False)
+    t0 = time.perf_counter()
+    loss = float(trainer.train_step(x, y))
+    torch.save({"loss": loss, "x": x, "y": y, "pools": pools,
+                "seconds": time.perf_counter() - t0}, path)
+
+
+def start_zoo_cpu(tmp):
+    """Start the zoo's CPU processes (forwards, and one per train step);
+    returns {what: (process, result path)}."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    jobs = {"forwards": (zoo_cpu_forwards, ())}
+    for name in ZOO_TRAIN:
+        jobs[name] = (zoo_cpu_step, (name,))
+    procs = {}
+    for what, (fn, args) in jobs.items():
+        path = os.path.join(tmp, f"zoo_{what}.pt")
+        proc = ctx.Process(target=fn, args=(*args, path))
+        proc.start()
+        procs[what] = (proc, path)
+    return procs
+
+
+def stop(procs):
+    for proc, _ in procs.values():
+        if proc.is_alive():
+            proc.kill()
+        proc.join()
+
+
+def zoo_cpu_result(procs, what, timeout=900):
+    import torch
+
+    proc, path = procs[what]
+    proc.join(timeout=timeout)
+    if proc.is_alive():
+        proc.kill()
+        proc.join()
+    if proc.exitcode != 0:
+        raise AssertionError(f"the zoo's CPU process {what!r} failed: exit "
+                             f"code {proc.exitcode}")
+    return torch.load(path, weights_only=True)
+
+
+def zoo_serve(dev, card, name, paper, count, cpu_out):
+    """One configuration of the zoo phase (module docstring, phase 9).
+    Returns its CQT kernel launches."""
+    import torch
+
+    from multipitch_architectures_tpu_torch.dsp import hcqt
+    from multipitch_architectures_tpu_torch.eval import (
+        predict_dense, predict_dense_chunked, predict_framewise)
+    from multipitch_architectures_tpu_torch.ops.cqt_octave import cqt_octaves
+
+    model, group = zoo_model(name)
+    n_params = sum(p.numel() for p in model.parameters())
+    if n_params != count:
+        raise AssertionError(f"{paper} ({name}): {n_params:,} parameters, "
+                             f"logged {count:,}")
+    model.to(dev).eval()
+    punet = name == ZOO_PUNET
+
+    def serve(y):
+        t0 = time.perf_counter()
+        f = hcqt(y, device=dev, **HCQT_KW)[0]
+        out = predict_framewise(model, f, batch_size=BATCH, group=group,
+                                return_aux=punet)
+        torch.cuda.synchronize()
+        return f, out, time.perf_counter() - t0
+
+    before = cqt_octaves.launches
+    serve(audio(REQUEST_SECONDS[-1], SEED + 99))        # warm-up request
+    torch.cuda.reset_peak_memory_stats(dev)
+    y = audio(ZOO_SECONDS, SEED + 7)
+    f, out, wall = serve(y)
+    peak = torch.cuda.max_memory_allocated(dev)
+    launches = cqt_octaves.launches - before
+    pred, aux = out if punet else (out, None)
+    t = frames(ZOO_SECONDS)
+    ok = (pred.shape == (t, 72) and bool(torch.isfinite(pred).all())
+          and float(pred.min()) >= 0.0 and float(pred.max()) <= 1.0)
+    if punet:
+        ok = ok and aux.shape == (t, 24) and bool(torch.isfinite(aux).all())
+    if not ok or launches != 2:
+        raise AssertionError(f"{paper}: output {tuple(pred.shape)} in "
+                             f"[{float(pred.min())}, {float(pred.max())}], "
+                             f"aux {None if aux is None else aux.shape}, "
+                             f"{launches} CQT launches in 2 requests")
+    mode = f"cross_batch:{group}, " if group else ""
+    print(f"[zoo] {paper} ({name}): {n_params:,} parameters (logged); "
+          f"{ZOO_SECONDS} s -> {tuple(pred.shape)} in [{float(pred.min()):.4f}"
+          f", {float(pred.max()):.4f}]"
+          + (f", polyphony logits {tuple(aux.shape)} finite" if punet else "")
+          + f" ({mode}batch {BATCH}): wall {wall * 1e3:.1f} ms, "
+          f"{ZOO_SECONDS / wall:.2f}x real time, peak device memory "
+          f"{peak / 2**30:.2f} GiB; 1 CQT launch per request; {card}")
+
+    if name in ZOO_DENSE:
+        for label, fn in (("predict_dense", lambda: predict_dense(model, f)),
+                          ("predict_dense_chunked(chunk=512)",
+                           lambda: predict_dense_chunked(model, f,
+                                                         chunk=512))):
+            fn()                                        # warm-up
+            dense, ms = cuda_timed(fn)
+            gap = float((dense - pred).abs().max())
+            if dense.shape != pred.shape or not bool(
+                    torch.isfinite(dense).all()):
+                raise AssertionError(f"{paper} {label}: {dense.shape}")
+            print(f"[zoo] {paper} {label}: {ms:.1f} ms for the {ZOO_SECONDS}"
+                  f"-s request ({ZOO_SECONDS / ms * 1e3:.1f}x real time), max "
+                  f"abs gap to the windowed output {gap:.3e} (not the "
+                  f"protocol: the dense pass sees the neighbouring frames "
+                  f"where each window sees zero padding); {card}")
+
+    with torch.no_grad():
+        got = model(zoo_windows().to(dev))
+    got = list(got) if isinstance(got, tuple) else [got]
+    gaps = [float((g.cpu() - w).abs().max()) for g, w in zip(got, cpu_out)]
+    if len(got) != len(cpu_out) or not max(gaps) < MODEL_TOL:
+        raise AssertionError(f"{paper} card vs CPU: max abs gaps {gaps}")
+    print(f"[zoo] {paper} {ZOO_CHECK_WINDOWS} windows, card vs CPU (one "
+          f"thread): max abs gap {gaps[0]:.3e}"
+          + (f", polyphony logits {gaps[1]:.3e}" if punet else "")
+          + f" (< {MODEL_TOL:g})")
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def zoo_step(dev, card, name, cpu):
+    """One AdamW step of ``name`` at batch 25 on the card, the CPU's
+    max-pool choices replayed, against the CPU process's step; then the
+    step timed with ``deterministic`` on and off, and its FLOPs."""
+    import dataclasses
+
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from multipitch_architectures_tpu_torch.train import Trainer
+
+    cfg = zoo_train_config(name)
+    trainer = Trainer(zoo_train_model(name), cfg, device=dev)
+    x, y = cpu["x"].to(dev), cpu["y"].to(dev)
+    handles = pool_hooks(trainer.model, cpu["pools"], replay=True)
+    loss = float(trainer.train_step(x, y))
+    for h in handles:
+        h.remove()
+    rel = abs(loss - cpu["loss"]) / abs(cpu["loss"])
+
+    def step():
+        trainer.train_step(x, y)
+
+    step_ms = cuda_ms(step, reps=TIMED_STEPS, warmup=3)
+    trainer.config = dataclasses.replace(cfg, deterministic=False)
+    free_ms = cuda_ms(step, reps=TIMED_STEPS, warmup=3)
+    trainer.config = cfg
+    fc = FlopCounterMode(display=False)
+    with fc:
+        step()
+    flops = fc.get_total_flops()
+    share = flops / (step_ms / 1e3) / F32_FLOP_PER_S
+    print(f"[zoo] train step {name} ({cfg.loss}) at batch {TRAIN_BATCH}, "
+          f"card vs CPU (the CPU's max-pool choices replayed, dropout 0): "
+          f"loss {loss:.6f} vs {cpu['loss']:.6f}, rel {rel:.2e} (<= "
+          f"{TRAIN_LOSS_RTOL:g}; the CPU's step took {cpu['seconds']:.1f} s "
+          f"on one thread); {step_ms:.2f} ms per train_step with "
+          f"deterministic on, {free_ms:.2f} ms off (CUDA events, "
+          f"{TIMED_STEPS} steps after 3 warm-ups), {flops / 1e12:.3f} TFLOP "
+          f"per step (FlopCounterMode) = {share:.1%} of the float32 peak "
+          f"with deterministic on, {share * step_ms / free_ms:.1%} off; "
+          f"{card}")
+    if not rel <= TRAIN_LOSS_RTOL:
+        raise AssertionError(f"{name}: the card's train step loss differs "
+                             f"from the CPU's by rel {rel:.2e}")
+    del trainer
+    torch.cuda.empty_cache()
+
+
+def phase_zoo(dev, card, procs):
+    """Phase 9: the rest of the registry's model zoo at full width.
+    Returns the CQT kernel launches of its requests."""
+    cpu_forwards = zoo_cpu_result(procs, "forwards")
+    launches = 0
+    for name, paper, count in ZOO:
+        launches += zoo_serve(dev, card, name, paper, count,
+                              cpu_forwards[name])
+    for name in ZOO_TRAIN:
+        zoo_step(dev, card, name, zoo_cpu_result(procs, name))
+    return launches
 
 
 def main():
+    import tempfile
+
     t0 = time.perf_counter()
     seconds = {}
 
@@ -1519,37 +1879,20 @@ def main():
         seconds[phase], t0 = t - t0, t
 
     dev, card = phase_device()
-    phase_build()
-    lap("device and build")
-    cqt = phase_kernel(dev, card)
-    lap("kernel")
-    phase_hcqt(dev)
-    lap("hcqt")
-    cqt_launches, model, cpu_model = phase_serving(dev, card)
-    lap("serving")
-    gemm = phase_int8_kernel(dev, model)
-    lap("int8-kernel")
-    gemm_launches, sums_err = phase_int8_serving(dev, card, model, cpu_model)
-    lap("int8-serving")
-    gemm["max_abs_err"] = max(gemm["max_abs_err"], sums_err)
-    del model, cpu_model
+    with tempfile.TemporaryDirectory() as tmp:
+        # the zoo's CPU references take minutes on one core each: they run
+        # beside every phase until the zoo phase reads them
+        procs = start_zoo_cpu(tmp)
+        try:
+            launches = run_phases(dev, card, procs, lap)
+        finally:
+            stop(procs)
 
     import torch
 
-    from multipitch_architectures_tpu_torch.ops.cqt_octave import cqt_octaves
-    from multipitch_architectures_tpu_torch.ops.int8_gemm import (
-        int8_conv2d_dequant)
-
-    int8_conv2d_dequant.launches = cqt_octaves.launches = 0
-    phase_train(dev, card)
-    print(f"[train] the training path launched the CQT kernel "
-          f"{cqt_octaves.launches} times and the int8 GEMM "
-          f"{int8_conv2d_dequant.launches} times: it has no hand-written "
-          f"kernel (its backward runs through autograd and cuDNN)")
-    lap("train")
-
     print("[phases] seconds: " + ", ".join(f"{k} {v:.1f}"
                                            for k, v in seconds.items()))
+    cqt_launches, cqt, gemm_launches, gemm = launches
     print(card)
     print(json.dumps({"kernels": [{
         "name": "cqt_octave",
@@ -1570,6 +1913,50 @@ def main():
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
+
+
+def run_phases(dev, card, procs, lap):
+    """Phases 2-9; returns the kernels' launches on the main paths and
+    their measurements."""
+    phase_build()
+    lap("device and build")
+    cqt = phase_kernel(dev, card)
+    lap("kernel")
+    phase_hcqt(dev)
+    lap("hcqt")
+    cqt_launches, model, cpu_model = phase_serving(dev, card)
+    lap("serving")
+    gemm = phase_int8_kernel(dev, model)
+    lap("int8-kernel")
+    gemm_launches, sums_err = phase_int8_serving(dev, card, model, cpu_model)
+    lap("int8-serving")
+    gemm["max_abs_err"] = max(gemm["max_abs_err"], sums_err)
+    del model, cpu_model
+
+    from multipitch_architectures_tpu_torch.ops.cqt_octave import cqt_octaves
+    from multipitch_architectures_tpu_torch.ops.int8_gemm import (
+        int8_conv2d_dequant)
+
+    int8_conv2d_dequant.launches = cqt_octaves.launches = 0
+    phase_train(dev, card)
+    print(f"[train] the training path launched the CQT kernel "
+          f"{cqt_octaves.launches} times and the int8 GEMM "
+          f"{int8_conv2d_dequant.launches} times: it has no hand-written "
+          f"kernel (its backward runs through autograd and cuDNN)")
+    lap("train")
+
+    int8_conv2d_dequant.launches = cqt_octaves.launches = 0
+    zoo_launches = phase_zoo(dev, card, procs)
+    if cqt_octaves.launches != zoo_launches or int8_conv2d_dequant.launches:
+        raise AssertionError(f"zoo: {cqt_octaves.launches} CQT launches "
+                             f"counted, {zoo_launches} by request; "
+                             f"{int8_conv2d_dequant.launches} int8 GEMM")
+    print(f"[zoo] the zoo's {2 * len(ZOO)} requests launched the CQT kernel "
+          f"{cqt_octaves.launches} times (once per request) and the int8 "
+          f"GEMM {int8_conv2d_dequant.launches} times (int8 serving is the "
+          f"SAUnet's)")
+    lap("zoo")
+    return cqt_launches + zoo_launches, cqt, gemm_launches, gemm
 
 
 if __name__ == "__main__":

@@ -1,12 +1,20 @@
-"""Whole-recording framewise inference by the reference's windowed
-protocol.
+"""Whole-recording framewise inference.
 
-Counterpart of ``predict_framewise`` in
-``multipitch_architectures_tpu/eval/inference.py``. The reference
-predicts one stride-1 75-frame window per output frame through its test
-DataLoader (exp180d…py:417-443): the recording is padded by
-(half_context, half_context + 1) frames, and batch composition matters
-because of the cross-batch attention quirk.
+Counterpart of ``multipitch_architectures_tpu/eval/inference.py``:
+
+- :func:`predict_framewise`, the reference's windowed protocol: one
+  stride-1 75-frame window per output frame through its test DataLoader
+  (exp180d…py:417-443); the recording is padded by (half_context,
+  half_context + 1) frames, and batch composition matters because of the
+  cross-batch attention quirk. Every model of the zoo serves this way.
+- :func:`predict_dense` and :func:`predict_dense_chunked`, for the
+  segmentation CNNs only (stride 1 in time): one pass over the padded
+  recording, or over overlapping chunks of it, gives every framewise
+  prediction at about 1/75 of the windowed protocol's work. They are not
+  the protocol: the dense pass sees the true neighbouring frames where
+  each window's convs see zero padding (a worst measure delta of 2.6e-3
+  on trained CNNs in the JAX package's measurements). The U-Nets pool
+  in time and must serve windowed.
 """
 
 import numpy as np
@@ -32,14 +40,30 @@ def _next_batch_size(remaining, batch_size, group):
     return n
 
 
+def _compressed(inputs, compression):
+    x = torch.as_tensor(inputs, dtype=torch.float32)
+    return torch.log1p(compression * x) if compression is not None else x
+
+
+def _first(y):
+    return y[0] if isinstance(y, tuple) else y
+
+
+def _check_eval(model, name):
+    if model.training:
+        raise ValueError(f"{name} wants the model in eval mode")
+
+
 @torch.no_grad()
 def predict_framewise(model, inputs, context=75, batch_size=50,
-                      compression=10.0, group=None, start_frame=0):
+                      compression=10.0, group=None, start_frame=0,
+                      return_aux=False):
     """Per-frame predictions for a whole recording.
 
     Args:
         model: an ``nn.Module`` in eval mode mapping (B, 6, 75, 216) to
-            (B, 1, 1, bins).
+            (B, 1, 1, bins), or to a tuple whose first element is that
+            (the PUnet's ``(salience, polyphony logits)``).
         inputs: raw HCQT (6, T, 216) tensor (uncompressed); the forward
             runs on its device.
         compression: log-compression γ (None if inputs are already
@@ -53,22 +77,23 @@ def predict_framewise(model, inputs, context=75, batch_size=50,
             already holds the earlier ones, as ``predict_framewise_int8``
             does from its f32 calibration pass). Batch composition stays
             the reference's when it is a multiple of ``batch_size``.
+        return_aux: also return the model's second output flattened per
+            frame (the PUnet's polyphony logits, which the reference's
+            notebook 02 reads) as ``(pred, aux)``; an empty
+            ``(T - start_frame, 0)`` tensor for a model without one.
 
     Returns: (T - start_frame, bins) float32 tensor on ``inputs``'
-    device.
+    device, or ``(pred, aux)`` with ``return_aux``.
     """
-    if model.training:
-        raise ValueError("predict_framewise wants the model in eval mode")
+    _check_eval(model, "predict_framewise")
     if group is not None and batch_size % group:
         raise ValueError(f"batch_size {batch_size} not a multiple of "
                          f"attention group {group}")
-    x = torch.as_tensor(inputs, dtype=torch.float32)
-    if compression is not None:
-        x = torch.log1p(compression * x)
+    x = _compressed(inputs, compression)
     t = x.shape[1]
     xp = _pad_inputs(x, context)
     half = context // 2
-    outs = []
+    outs, auxs = [], []
     start = int(start_frame)
     if not 0 <= start < t:
         raise ValueError(f"start_frame {start_frame} outside [0, {t})")
@@ -78,6 +103,56 @@ def predict_framewise(model, inputs, context=75, batch_size=50,
         # cross-batch attention quirk
         n = _next_batch_size(t - start, batch_size, group)
         y = model(gather_windows(xp, half + start + np.arange(n), context))
-        outs.append(y.reshape(n, -1))
+        aux = y[1] if isinstance(y, tuple) else None
+        outs.append(_first(y).reshape(n, -1))
+        if return_aux:
+            auxs.append(aux.reshape(n, -1) if aux is not None
+                        else outs[-1].new_zeros((n, 0)))
         start += n
+    if return_aux:
+        return torch.cat(outs), torch.cat(auxs)
     return torch.cat(outs)
+
+
+@torch.no_grad()
+def predict_dense_chunked(model, inputs, context=75, chunk=512,
+                          compression=10.0):
+    """Dense inference over overlapping chunks, in one forward: chunk i
+    spans frames ``[i·chunk, i·chunk + chunk + context)`` of the padded
+    recording (padded further with zeros so that every span is in range)
+    and gives ``chunk`` framewise predictions, so the work is
+    ``(chunk + context) / chunk`` of one dense pass. The spans are
+    gathered with one index tensor. For the segmentation CNNs only
+    (module docstring).
+
+    Returns: (T, bins) float32 tensor on ``inputs``' device.
+    """
+    _check_eval(model, "predict_dense_chunked")
+    x = _compressed(inputs, compression)
+    t = x.shape[1]
+    xp = _pad_inputs(x, context)                        # (C, T + ctx, F)
+    n_chunks = -(-t // chunk)
+    need = n_chunks * chunk + context
+    if xp.shape[1] < need:
+        xp = F.pad(xp, (0, 0, 0, need - xp.shape[1]))
+    idx = (torch.arange(n_chunks, device=xp.device)[:, None] * chunk
+           + torch.arange(chunk + context, device=xp.device))
+    segs = xp[:, idx].transpose(0, 1)                   # (N, C, span, F)
+    y = _first(model(segs))                             # (N, 1, chunk+1, bins)
+    y = y.reshape(n_chunks, y.shape[2], -1)[:, :chunk]
+    return y.reshape(n_chunks * chunk, -1)[:t]
+
+
+@torch.no_grad()
+def predict_dense(model, inputs, context=75, compression=10.0):
+    """One dense pass over the whole padded recording: every framewise
+    prediction at once. For the segmentation CNNs only (module
+    docstring).
+
+    Returns: (T, bins) float32 tensor on ``inputs``' device.
+    """
+    _check_eval(model, "predict_dense")
+    x = _compressed(inputs, compression)
+    t = x.shape[1]
+    y = _first(model(_pad_inputs(x, context)[None]))    # (1, 1, T+1, bins)
+    return y.reshape(y.shape[2], -1)[:t]

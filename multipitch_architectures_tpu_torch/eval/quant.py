@@ -45,7 +45,7 @@ from torch import nn
 
 from ..data.windows import gather_windows
 from ..ops.int8_gemm import int8_conv2d_dequant
-from .inference import _pad_inputs, predict_framewise
+from .inference import _next_batch_size, _pad_inputs, predict_framewise
 from .measures import calculate_eval_measures
 from .mireval import calculate_mpe_measures_mireval
 
@@ -383,17 +383,22 @@ def auto_hybrid_int8(model, cal_windows, min_kernel_elems: int = 4096,
     return policy, report
 
 
-def _gate_verify_windows(xp, t, batch_size, context):
+def _gate_verify_windows(xp, t, batch_size, context, group=None):
     """The drift gate's verification set: the protocol's own batching of
-    the whole recording, consecutive ``batch_size``-frame batches and the
-    natural-size tail, every frame once. Like the JAX package's, it
-    batches by ``batch_size`` and ignores the attention group, so with
-    ``batch_size`` > ``group`` a tail that is not a multiple of the group
-    makes grouped attention raise."""
+    the whole recording, every frame once, in the drain of
+    :func:`predict_framewise`: full batches, then (with grouped
+    attention) the tail's full groups, then the natural-size remainder.
+    The JAX package's set batches by ``batch_size`` only, so there a
+    ragged tail longer than the group makes grouped attention raise (a
+    10-s request, 431 frames, at batch 250 and group 50); without a group
+    the two sets are the same."""
     half = context // 2
-    return [gather_windows(xp, half + s + np.arange(min(batch_size, t - s)),
-                           context)
-            for s in range(0, t, batch_size)]
+    out, start = [], 0
+    while start < t:
+        n = _next_batch_size(t - start, batch_size, group)
+        out.append(gather_windows(xp, half + start + np.arange(n), context))
+        start += n
+    return out
 
 
 def predict_framewise_int8(model, inputs, context: int = 75,
@@ -450,7 +455,7 @@ def predict_framewise_int8(model, inputs, context: int = 75,
 
     exclude = ()
     if gate is not None:
-        verify = _gate_verify_windows(xp, t, batch_size, context)
+        verify = _gate_verify_windows(xp, t, batch_size, context, group)
         policy, report = auto_hybrid_int8(model, cal, min_kernel_elems, gate,
                                           per_channel=per_channel,
                                           verify_windows=verify,

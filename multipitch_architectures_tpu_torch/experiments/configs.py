@@ -29,7 +29,11 @@ from dataclasses import dataclass, field
 from typing import Dict, List
 
 from ..data.augment import AugmentConfig
-from ..models import SimpleUNetDoubleSelfAttn
+from ..models import (BasicCnnSegmSigmoid, DeepCnnSegmSigmoid,
+                      SimpleUNetDoubleSelfAttn,
+                      SimpleUNetDoubleSelfAttnTwoLayers,
+                      SimpleUNetLargeKernels,
+                      SimpleUNetPolyphonyClassifSoftmax, UNetBlstmVarLayers)
 from ..train.trainer import TrainConfig
 
 REGISTRY_PATH = os.path.join(
@@ -37,9 +41,18 @@ REGISTRY_PATH = os.path.join(
         __file__)))),
     "multipitch_architectures_tpu", "experiments", "registry.json")
 
-# reference class name -> this package's module
+# reference class name -> this package's module: every class that a
+# registry entry uses
 MODEL_REGISTRY = {
+    "basic_cnn_segm_sigmoid": BasicCnnSegmSigmoid,
+    "deep_cnn_segm_sigmoid": DeepCnnSegmSigmoid,
+    "simple_u_net_largekernels": SimpleUNetLargeKernels,
     "simple_u_net_doubleselfattn": SimpleUNetDoubleSelfAttn,
+    "simple_u_net_doubleselfattn_twolayers":
+        SimpleUNetDoubleSelfAttnTwoLayers,
+    "u_net_blstm_varlayers": UNetBlstmVarLayers,
+    "simple_u_net_polyphony_classif_softmax":
+        SimpleUNetPolyphonyClassifSoftmax,
 }
 
 # Exp4 big-mix per-corpus train/val strides
@@ -203,16 +216,22 @@ def load_experiment(name: str, fix_val_split: bool = False,
 
 
 def shrink_for_smoke(cfg: ExperimentConfig) -> ExperimentConfig:
-    """Scale a SAUnet config down for fast synthetic smoke runs while
-    keeping the class and code path (the JAX package's geometry:
-    ``experiments/run.py --smoke`` and the end-to-end tests)."""
+    """Scale a config down for fast synthetic smoke runs while keeping
+    the class and code path (the JAX package's geometry:
+    ``experiments/run.py --smoke`` and the end-to-end tests). The BLSTM's
+    widths follow the scalefac-16 bottleneck (32 channels x 13 bins)."""
     kw = dict(cfg.model_kwargs)
     kw["n_chan_layers"] = [8, 8, 4, 2]
     if "scalefac" in kw:
         kw["scalefac"] = 16
     if "embed_dim" in kw:
-        kw["embed_dim"] = 32
+        if cfg.model_class == "u_net_blstm_varlayers":
+            kw["embed_dim"], kw["hidden_size"] = 416, 208
+        else:
+            kw["embed_dim"] = 32
     if "mlp_dim" in kw:
         kw["mlp_dim"] = 64
+    if "n_prefilt_layers" in kw:
+        kw["n_prefilt_layers"] = min(kw["n_prefilt_layers"], 2)
     tc = dataclasses.replace(cfg.train_config, batch_size=8)
     return dataclasses.replace(cfg, model_kwargs=kw, train_config=tc)

@@ -1,4 +1,4 @@
-"""Building blocks of the SAUnet family, NCHW ``(batch, channels, time,
+"""Building blocks of the model zoo, NCHW ``(batch, channels, time,
 freq)``.
 
 Counterpart of ``multipitch_architectures_tpu/models/layers.py``. Module
@@ -16,6 +16,7 @@ import torch.nn.functional as F
 
 from ..ops.attention import (TorchMultiheadAttention,
                              sinusoidal_positional_encoding)
+from ..ops.lstm import TorchLSTM
 
 
 def max_pool2d(x, kernel, stride=None, padding=(0, 0)):
@@ -59,11 +60,13 @@ class DoubleConv(nn.Module):
     """Two Conv-BN-ReLU stages (unet_cnns.py:30-82) in the reference's
     ``double_conv`` Sequential. ``convdrop=None`` gives the plain layout
     (convs at indices 0 and 3); a number, 0.0 included, inserts
-    Dropout(p=convdrop) after each stage (convs at 0 and 4)."""
+    Dropout(p=convdrop) after each stage (convs at 0 and 4).
+    ``residual`` adds a 1x1-conv shortcut of the input, ``resize``."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  mid_channels: Optional[int] = None, kernel=(3, 3),
-                 padding=(1, 1), convdrop: Optional[float] = 0.0):
+                 padding=(1, 1), convdrop: Optional[float] = 0.0,
+                 residual: bool = False):
         super().__init__()
         mid = mid_channels or out_channels
         layers = []
@@ -74,9 +77,12 @@ class DoubleConv(nn.Module):
             if convdrop is not None:
                 layers.append(nn.Dropout(convdrop))
         self.double_conv = nn.Sequential(*layers)
+        self.resize = (nn.Conv2d(in_channels, out_channels, (1, 1))
+                       if residual else None)
 
     def forward(self, x):
-        return self.double_conv(x)
+        h = self.double_conv(x)
+        return h if self.resize is None else self.resize(x) + h
 
 
 class TransformerEncLayer(nn.Module):
@@ -131,6 +137,27 @@ class TransformerEncLayer(nn.Module):
         return x2.transpose(1, 2).reshape(b, e, h, w)
 
 
+class BLSTMTemporalEncLayer(nn.Module):
+    """BLSTM over time with each step's (channel x freq) features
+    flattened channel-major (unet_cnns.py:220-243): ``(B, C, T, F)`` ->
+    ``(B, T, C·F)``, and the ``(B, T, 2H)`` output split channel-major
+    back onto the map as ``(B, 2H/F, T, F)``. ``n_chan · n_bins`` is the
+    reference's ``embed_dim``."""
+
+    def __init__(self, n_chan: int, n_bins: int, hidden_size: int,
+                 num_layers: int = 1):
+        super().__init__()
+        if (2 * hidden_size) % n_bins:
+            raise ValueError(f"2 x hidden_size {2 * hidden_size} does not "
+                             f"split onto {n_bins} frequency bins")
+        self.blstm = TorchLSTM(n_chan * n_bins, hidden_size, num_layers)
+
+    def forward(self, x):
+        b, c, t, f = x.shape
+        out = self.blstm(x.permute(0, 2, 1, 3).reshape(b, t, c * f))
+        return out.reshape(b, t, -1, f).permute(0, 2, 1, 3)
+
+
 def pitch_head(in_channels: int, n_chan_layers: Sequence[int],
                n_bins_in: int = 216, n_bins_out: int = 72,
                a_lrelu: float = 0.3, p_dropout: float = 0.2,
@@ -162,6 +189,27 @@ def pitch_head(in_channels: int, n_chan_layers: Sequence[int],
     return {"conv2": conv2, "conv3": conv3, "conv4": conv4}
 
 
+class PitchHead(nn.ModuleDict):
+    """The shared output head as one module (the JAX package's
+    ``PitchHead``): :func:`pitch_head`'s ``conv2``, ``conv3`` and
+    ``conv4``, applied in that order. A model adds its three parts at its
+    own top level (:meth:`attach`), where the reference keeps them."""
+
+    def __init__(self, in_channels: int, n_chan_layers: Sequence[int],
+                 n_bins_in: int = 216, n_bins_out: int = 72,
+                 a_lrelu: float = 0.3, p_dropout: float = 0.2,
+                 context: int = 75):
+        super().__init__(pitch_head(in_channels, n_chan_layers, n_bins_in,
+                                    n_bins_out, a_lrelu, p_dropout, context))
+
+    def attach(self, model: nn.Module):
+        for name, m in self.items():
+            model.add_module(name, m)
+
+    def forward(self, x):
+        return self.conv4(self.conv3(self.conv2(x)))
+
+
 @torch.no_grad()
 def init_parameters(model: nn.Module, generator: torch.Generator):
     """Seeded random weights, drawn from ``generator``. Convs and
@@ -179,8 +227,18 @@ def init_parameters(model: nn.Module, generator: torch.Generator):
         elif isinstance(m, TorchMultiheadAttention):
             nn.init.xavier_uniform_(m.in_proj_weight, generator=generator)
             nn.init.zeros_(m.in_proj_bias)
+        elif isinstance(m, nn.LSTM):
+            _lstm_uniform(m, generator)
         elif isinstance(m, (nn.LayerNorm, nn.BatchNorm2d)):
             m.reset_parameters()
+
+
+def _lstm_uniform(m, generator):
+    """Every LSTM weight and bias U(±1/sqrt(H)): ``nn.LSTM``'s own
+    initialisation and the JAX package's ``TorchLSTM`` init."""
+    bound = 1.0 / math.sqrt(m.hidden_size)
+    for p in m.parameters():
+        nn.init.uniform_(p, -bound, bound, generator=generator)
 
 
 def _flax_kaiming_uniform(p, generator):
@@ -203,6 +261,7 @@ def init_parameters_flax(model: nn.Module, generator: torch.Generator):
       zero biases (JAX ``ops/attention.py:76-83``);
     - a learned positional encoding ``pe``: flax ``kaiming_uniform``
       (JAX ``models/layers.py:232``);
+    - LSTM weights and biases: U(±1/sqrt(H)) (JAX ``ops/lstm.py:52``);
     - norms: unit scale and zero shift; BatchNorm statistics (0, 1).
     """
     attention = [m for m in model.modules()
@@ -220,6 +279,8 @@ def init_parameters_flax(model: nn.Module, generator: torch.Generator):
         elif isinstance(m, TransformerEncLayer) and \
                 m.pos_encoding == "learnable":
             _flax_kaiming_uniform(m.pe, generator)
+        elif isinstance(m, nn.LSTM):
+            _lstm_uniform(m, generator)
     for m in attention:
         nn.init.xavier_uniform_(m.in_proj_weight, generator=generator)
         nn.init.zeros_(m.in_proj_bias)

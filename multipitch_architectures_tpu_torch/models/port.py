@@ -10,7 +10,8 @@ in numpy only:
 - conv kernels HWIO -> OIHW; dense kernels transposed;
 - the harmonic LayerNorm affine (F, C) -> (C, F);
 - BatchNorm scale/bias with running mean/var;
-- attention ``in_proj`` / ``out_proj`` kept in torch layout.
+- attention ``in_proj`` / ``out_proj`` and the LSTM's weights kept in
+  torch layout.
 """
 
 from typing import Dict, Optional
@@ -57,6 +58,8 @@ def _double_conv(p, stats, key, out, convdrop):
     _bn(p["bn1"], stats["bn1"], f"{q}.{b1}", out)
     _conv(p["conv2"], f"{q}.{c2}", out)
     _bn(p["bn2"], stats["bn2"], f"{q}.{b2}", out)
+    if "resize" in p:                                  # residual shortcut
+        _conv(p["resize"], f"{key}.resize", out)
 
 
 def _transformer_enc(p, key, out):
@@ -77,15 +80,22 @@ def _transformer_enc(p, key, out):
 
 def state_dict_from_flax(variables, convdrop: Optional[float] = 0.0
                          ) -> Dict[str, torch.Tensor]:
-    """flax variables of a SAUnet-family model (nested dicts of arrays
-    under ``params`` and ``batch_stats``) -> this package's state_dict.
-    ``convdrop`` is the model's: it decides the DoubleConv indices."""
+    """flax variables of a model of the zoo (nested dicts of arrays under
+    ``params`` and ``batch_stats``) -> this package's state_dict, by the
+    key rules of the JAX package's ``export_state_dict``
+    (models/port.py:374). ``convdrop`` is the model's: it decides the
+    DoubleConv indices."""
     params = variables["params"]
     stats = variables.get("batch_stats", {})
     out = {}
     for name, p in params.items():
         if name == "layernorm":
             _ln(p["ln"], "layernorm", out, transpose=True)
+        elif name == "trunk":                     # the segmentation CNNs
+            _ln(p["layernorm"]["ln"], "layernorm", out, transpose=True)
+            _conv(p["conv1"]["conv"], "conv1.0", out)
+        elif name.startswith("prefilt"):
+            _conv(p["conv"], f"prefilt_list.{name[len('prefilt'):]}.0", out)
         elif name == "inc" or name.startswith("upconv"):
             _double_conv(p, stats[name], name, out, convdrop)
         elif name.startswith("down"):
@@ -93,11 +103,20 @@ def state_dict_from_flax(variables, convdrop: Optional[float] = 0.0
             _double_conv(p, stats[name], f"{name}.1", out, convdrop)
         elif name.startswith("attention"):
             _transformer_enc(p, name, out)
+        elif name.startswith("lstm"):
+            for k, v in p["blstm"].items():
+                out[f"{name}.blstm.{k}"] = np.asarray(v)
+        elif name in ("convP1", "convP2"):        # the polyphony head
+            _conv(p, "convP.0" if name == "convP1" else "convP.4", out)
         elif name == "head":
             _conv(p["conv2"]["conv"], "conv2.0", out)
             _conv(p["conv3"]["conv"], "conv3.0", out)
             _conv(p["conv4"]["conv"], "conv4.0", out)
             _conv(p["conv5"], "conv4.3", out)
+        elif name in ("conv1", "conv2", "conv3", "conv4"):
+            _conv(p["conv"], f"{name}.0", out)
+        elif name == "conv5":
+            _conv(p, "conv4.3", out)
         else:
             raise KeyError(f"state_dict_from_flax: unknown module {name!r}")
     return {k: torch.tensor(v) for k, v in out.items()}

@@ -1,2 +1,3 @@
 from .attention import TorchMultiheadAttention, sinusoidal_positional_encoding
-from .resize import up_concat_pad
+from .lstm import TorchLSTM
+from .resize import up_concat_pad, upsample_bilinear_align_corners

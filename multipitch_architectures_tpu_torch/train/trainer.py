@@ -19,7 +19,12 @@ replaces the copy-pasted train/val/checkpoint loop of the reference's
 - deterministic resume: the data, dropout and augmentation generators
   are seeded by ``fold_in(seed + 1, epoch, stream, batch index)``, as the
   JAX package's ``fold_in`` key streams, so a resumed run replays a
-  straight run's randomness.
+  straight run's randomness; with ``TrainConfig.deterministic`` (the
+  default) each step runs with ``cudnn.deterministic``, so on the card
+  too a resumed run repeats a straight run bit for bit (the JAX
+  package's promise, train/trainer.py:262-268). The U-Nets' upsampling
+  is two products (``ops.resize``), whose backward adds in a fixed
+  order.
 
 BatchNorm is torch's, as in the reference: its running variance takes
 the unbiased batch variance, where flax's takes the biased one (a factor
@@ -30,6 +35,7 @@ to a multiple of the device count, and ``NamedSharding``. The port
 trains on one card (ROADMAP queue 1 item 10).
 """
 
+import contextlib
 import logging
 import math
 import os
@@ -78,6 +84,21 @@ class TrainConfig:
     val_in_train_mode: bool = False
     max_train_batches: Optional[int] = None          # 'moresamples' 3800 cap
     seed: int = 0
+    # cuDNN's deterministic algorithms in every step: bit-exact resume on
+    # the card, at a cost that chip_smoke.py's phase 8e measures
+    deterministic: bool = True
+
+
+@contextlib.contextmanager
+def _cudnn_deterministic(on: bool):
+    """``torch.backends.cudnn.deterministic`` on for the block when
+    ``on``, restored after it."""
+    before = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = before or on
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = before
 
 
 def _loss_fn_for(name: str) -> Callable:
@@ -176,8 +197,9 @@ class Trainer:
             group["lr"] = self.lr
         self.model.train()
         self.optimizer.zero_grad(set_to_none=True)
-        loss = self._loss(self.model(x), y, w)
-        loss.backward()
+        with _cudnn_deterministic(self.config.deterministic):
+            loss = self._loss(self.model(x), y, w)
+            loss.backward()
         self.optimizer.step()
         self.step += 1
         return loss.detach()
@@ -189,7 +211,8 @@ class Trainer:
         forward also advances the BatchNorm running statistics, which are
         kept, as the reference's validation loop does."""
         self.model.train(self.config.val_in_train_mode)
-        return self._loss(self.model(x), y, w)
+        with _cudnn_deterministic(self.config.deterministic):
+            return self._loss(self.model(x), y, w)
 
     # -- epoch loop -------------------------------------------------------
 

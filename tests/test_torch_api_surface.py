@@ -1,0 +1,206 @@
+"""The port's public surface against the JAX package's, without importing
+either package's modules: each JAX module is parsed with ``ast``, and
+each public name (a top-level function, class or assignment; in an
+``__init__``, also a relative import) needs a counterpart of the same
+name in the port's module of the same path. Two lists make the
+exceptions:
+
+- ``NOT_YET``: names that later work ports (ROADMAP.md, queue 1). The
+  test fails once a listed name exists in the port, so the list shrinks
+  with the port and cannot go stale;
+- ``BY_DESIGN``: names with no port: the flax- and optax-only names, the
+  Pallas kernel (its counterpart is ``ops/cqt_octave.py``), the reverse
+  weight porters (their counterpart is ``models.state_dict_from_flax``)
+  and the device-mesh names (the port runs on one card).
+
+Also: every registry entry builds on the ``meta`` device, and
+``build_model`` drops no registry model argument but ``n_ch_out``.
+"""
+
+import ast
+import inspect
+import os
+
+import torch
+
+from multipitch_architectures_tpu_torch.experiments import (
+    MODEL_REGISTRY, available_experiments, load_experiment)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+JAX = os.path.join(ROOT, "multipitch_architectures_tpu")
+PORT = os.path.join(ROOT, "multipitch_architectures_tpu_torch")
+
+_DATASETS = {"dataset_context", "dataset_context_measuresegm",
+             "dataset_context_segm", "dataset_context_segm_pitch",
+             "dataset_context_segm_widetarget"}
+_IO = {"NOTE_EVENT_SCHEMAS", "NoteEventSchema", "load_audio",
+       "load_note_events", "note_name_to_midi"}
+_NATIVE = {"NativeWindowLoader", "build_native_library", "trainer_batches"}
+_CNNS = {"BasicCnn", "BasicCnnPool", "BasicCnnSegmBlankLogSoftmax",
+         "BasicCnnSegmLogSoftmax"}
+_UNETS = {"FreqUNet", "FreqUNetBottomStack", "FreqUNetDoubleSelfAttn",
+          "FreqUNetSelfAttn", "SimpleUNet",
+          "SimpleUNetDoubleSelfAttnAllLayers",
+          "SimpleUNetDoubleSelfAttnPolyphony",
+          "SimpleUNetDoubleSelfAttnPolyphonyClassif",
+          "SimpleUNetDoubleSelfAttnTransEnc",
+          "SimpleUNetDoubleSelfAttnVarLayers", "SimpleUNetPolyphonyClassif",
+          "SimpleUNetSelfAttn", "SimpleUNetSixSelfAttn",
+          "UNetTemporalBlstmVarLayers", "UNetTemporalSelfAttnVarLayers"}
+_LAYERS = {"SingleConvSELU", "TransformerTemporalEncLayer"}
+_ALIASES = {"basic_cnn", "basic_cnn_pool", "basic_cnn_segm_blank_logsoftmax",
+            "basic_cnn_segm_logsoftmax", "freq_u_net",
+            "freq_u_net_bottomstack", "freq_u_net_doubleselfattn",
+            "freq_u_net_selfattn", "simple_u_net",
+            "simple_u_net_doubleselfattn_alllayers",
+            "simple_u_net_doubleselfattn_polyphony",
+            "simple_u_net_doubleselfattn_polyphony_classif",
+            "simple_u_net_doubleselfattn_transenc",
+            "simple_u_net_doubleselfattn_varlayers",
+            "simple_u_net_polyphony_classif", "simple_u_net_selfattn",
+            "simple_u_net_sixselfattn", "single_conv",
+            "transformer_temporal_enc_layer",
+            "u_net_temporal_blstm_varlayers",
+            "u_net_temporal_selfattn_varlayers"}
+_PROFILING = {"StepTimer", "device_sync", "trace"}
+_SUMMARY = {"count_macs", "model_summary"}
+_SHARED_INC = {"SharedIncForward", "predict_framewise_shared"}
+
+NOT_YET = {
+    "serve.py": {"export_window_forward", "load_window_forward",
+                 "predict_framewise_exported"},
+    "data/__init__.py": _DATASETS,
+    "data/datasets.py": _DATASETS,
+    "dsp/__init__.py": {"compute_annotation_array",
+                        "compute_annotation_array_nooverlap",
+                        "compute_efficient_hcqt", "compute_hcqt",
+                        "cqt_direct_numpy", "cqt_streamed",
+                        "estimate_tuning"},
+    "dsp/annotation.py": {"compute_annotation_array",
+                          "compute_annotation_array_nooverlap"},
+    "dsp/cqt.py": {"cqt_direct_numpy", "cqt_streamed"},
+    "dsp/hcqt.py": {"compute_efficient_hcqt", "compute_hcqt"},
+    "dsp/tuning.py": {"estimate_tuning", "piptrack", "pitch_tuning"},
+    "eval/__init__.py": _SHARED_INC,
+    "eval/shared_inc.py": _SHARED_INC,
+    "experiments/__init__.py": {"AudioCorpus"},
+    "experiments/runner.py": {"AudioCorpus"},
+    "io/__init__.py": _IO | _NATIVE,
+    "io/audio.py": _IO,
+    "io/native_loader.py": _NATIVE,
+    "models/__init__.py": _CNNS | _UNETS | _LAYERS | _ALIASES,
+    "models/cnns.py": _CNNS,
+    "models/layers.py": _LAYERS | {"leaky_relu",
+                                   "max_pool_with_indices_freq",
+                                   "max_unpool_freq"},
+    "models/unets.py": _UNETS,
+    "utils/__init__.py": _PROFILING | _SUMMARY | {"plot_matrix"},
+    "utils/plot.py": {"plot_matrix"},
+    "utils/profiling.py": _PROFILING,
+    "utils/summary.py": _SUMMARY,
+}
+
+_MESH = {"batch_sharding", "make_mesh", "replicated", "shard_params",
+         "tensor_parallel_param_specs"}
+_FLAX_INT8 = {"SCALES_COLLECTION", "make_int8_interceptor",
+              "quantized_apply_fn", "quantized_serving_fn"}
+BY_DESIGN = {
+    "train/__init__.py": {"TrainState"},
+    "train/trainer.py": {"TrainState"},
+    "train/schedulers.py": {"noam_optax_schedule"},
+    "eval/__init__.py": _FLAX_INT8 | {"predict_framewise_sharded"},
+    "eval/quant.py": _FLAX_INT8,
+    "eval/inference.py": {"predict_framewise_sharded"},
+    "ops/pallas_cqt.py": {"cqt_octave_pallas"},
+    "models/port.py": {"export_state_dict", "port_basic_cnn",
+                       "port_basic_cnn_segm", "port_basic_cnn_segm_blank",
+                       "port_deep_cnn_segm_sigmoid",
+                       "port_freq_u_net_selfattn", "port_simple_u_net",
+                       "port_unet_auto", "port_unet_transenc"},
+    "parallel/__init__.py": _MESH,
+    "parallel/mesh.py": _MESH,
+}
+
+
+def public_names(path):
+    """Top-level public names of a module file, by ``ast``."""
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    names = set()
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                             ast.ClassDef)):
+            names.add(node.name)
+        elif isinstance(node, ast.Assign):
+            names |= {t.id for t in node.targets if isinstance(t, ast.Name)}
+        elif isinstance(node, ast.AnnAssign) and \
+                isinstance(node.target, ast.Name):
+            names.add(node.target.id)
+        elif path.endswith("__init__.py") and \
+                isinstance(node, ast.ImportFrom) and node.level:
+            names |= {a.asname or a.name for a in node.names}
+    return {n for n in names if not n.startswith("_")}
+
+
+def jax_modules():
+    """{path relative to the package: public names} of the JAX package."""
+    out = {}
+    for root, _, files in os.walk(JAX):
+        for f in files:
+            if f.endswith(".py"):
+                path = os.path.join(root, f)
+                out[os.path.relpath(path, JAX)] = public_names(path)
+    return out
+
+
+def port_names(rel):
+    path = os.path.join(PORT, rel)
+    return public_names(path) if os.path.isfile(path) else set()
+
+
+def test_every_jax_public_name_has_a_port_counterpart():
+    missing = {}
+    for rel, names in sorted(jax_modules().items()):
+        want = names - NOT_YET.get(rel, set()) - BY_DESIGN.get(rel, set())
+        gap = want - port_names(rel)
+        if gap:
+            missing[rel] = sorted(gap)
+    assert not missing, f"no port counterpart (port them, or list them " \
+                        f"in NOT_YET or BY_DESIGN): {missing}"
+
+
+def test_not_yet_names_are_still_missing():
+    """A name that the port now has leaves NOT_YET."""
+    ported = {rel: sorted(names & port_names(rel))
+              for rel, names in NOT_YET.items() if names & port_names(rel)}
+    assert not ported, f"ported now, remove from NOT_YET: {ported}"
+
+
+def test_exception_lists_name_jax_names():
+    jax = jax_modules()
+    for table in (NOT_YET, BY_DESIGN):
+        for rel, names in table.items():
+            assert rel in jax and names <= jax[rel], (rel, names - jax[rel])
+
+
+def test_every_registry_entry_builds_and_keeps_its_arguments():
+    """All 111 entries build (on the ``meta`` device: shapes, no storage)
+    and their classes take every registry model argument but
+    ``n_ch_out``, which the reference's models never read."""
+    names = available_experiments()
+    assert len(names) == 111
+    classes = set()
+    for name in names:
+        cfg = load_experiment(name)
+        cls = MODEL_REGISTRY[cfg.model_class]
+        taken = inspect.signature(cls).parameters
+        dropped = set(cfg.model_kwargs) - set(taken)
+        assert dropped <= {"n_ch_out"}, (name, dropped)
+        with torch.device("meta"):
+            model = cfg.build_model()
+        assert isinstance(model, cls)
+        for key, value in cfg.model_kwargs.items():
+            if key in taken and hasattr(model, key):
+                assert getattr(model, key) == value, (name, key)
+        classes.add(cfg.model_class)
+    assert classes == set(MODEL_REGISTRY)

@@ -150,10 +150,10 @@ def test_positional_encoding_matches_jax():
 @pytest.mark.parametrize("h1,w1,h2,w2", [(4, 13, 9, 27), (37, 108, 75, 216)])
 def test_up_concat_pad_matches_jax(h1, w1, h2, w2):
     """Odd skip sizes make the (left, right, top, bottom) pad order bite.
-    atol 1e-4: ``F.interpolate`` (the reference's op) computes sampling
-    positions in float32, the JAX package in float64, which moves a
-    weight by up to (n_in - 1)·2^-24 against randn differences of a few
-    units (measured 2.7e-5 at 37x108 -> 75x216)."""
+    atol 1e-6: both packages upsample with the same float64-built
+    interpolation operators as two products (``F.interpolate``, the
+    reference's op, samples at float32 positions: 2.7e-5 away at
+    37x108 -> 75x216)."""
     rng = np.random.RandomState(3)
     x1 = rng.randn(2, 3, h1, w1).astype(np.float32)
     x2 = rng.randn(2, 5, h2, w2).astype(np.float32)
@@ -162,4 +162,4 @@ def test_up_concat_pad_matches_jax(h1, w1, h2, w2):
     got = up_concat_pad(torch.from_numpy(x1), torch.from_numpy(x2))
     assert got.shape == (2, 8, h2, w2)
     np.testing.assert_allclose(got.numpy().transpose(0, 2, 3, 1), want,
-                               atol=1e-4)
+                               atol=1e-6)

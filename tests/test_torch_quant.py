@@ -347,16 +347,71 @@ def test_gate_verify_windows_cover_the_whole_protocol():
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
 
-def test_gated_serve_with_a_ragged_grouped_tail_raises(tiny):
-    """Like the JAX package's, the gate batches its verification windows
-    by ``batch_size`` and ignores ``group``: with ``batch_size`` >
-    ``group`` a tail of 15 windows in groups of 10 makes grouped
-    attention raise."""
+def test_gated_serve_with_a_ragged_grouped_tail_raises(tiny, monkeypatch):
+    """The JAX package's gate batches its verification windows by
+    ``batch_size`` and ignores ``group``: with ``batch_size`` > ``group``
+    its set ends in a tail of 15 windows, which raises in groups of 10.
+    The port's set drains as the protocol does (20, then the tail's full
+    group of 10, then 5), so the gated serve serves, and its drift report
+    reads each frame once, in order."""
     _, _, tm = tiny
     grouped = SimpleUNetDoubleSelfAttn(**TINY, attn_mode="cross_batch:10")
     grouped.load_state_dict(tm.state_dict())
-    inputs = torch.from_numpy(
-        np.random.RandomState(9).rand(6, 35, 216).astype(np.float32))
-    with pytest.raises(ValueError, match="not a multiple of attention group"):
-        predict_framewise_int8(grouped.eval(), inputs, batch_size=20,
-                               group=10, cal_batches=1, gate=1e-3)
+    x = np.random.RandomState(9).rand(6, 35, 216).astype(np.float32)
+    theirs = jquant._gate_verify_windows(j_pad_inputs(jnp.asarray(x), 75),
+                                         35, 20, 75)
+    assert [int(w.shape[0]) for w in theirs] == [20, 15]
+    with pytest.raises(ValueError, match="not a multiple of attention"), \
+            torch.no_grad():
+        grouped.eval()(torch.from_numpy(np.array(theirs[-1])))
+    seen = []
+    search = tquant.auto_hybrid_int8
+
+    def recording(*args, verify_windows=None, **kw):
+        seen.extend(verify_windows)
+        return search(*args, verify_windows=verify_windows, **kw)
+
+    monkeypatch.setattr(tquant, "auto_hybrid_int8", recording)
+    pred = predict_framewise_int8(grouped.eval(), torch.from_numpy(x),
+                                  batch_size=20, group=10, cal_batches=1,
+                                  gate=1e-3)
+    assert pred.shape == (35, 72) and bool(torch.isfinite(pred).all())
+    assert [int(w.shape[0]) for w in seen] == [20, 10, 5]
+    xp = _pad_inputs(torch.log1p(10.0 * torch.from_numpy(x)), 75)
+    np.testing.assert_array_equal(
+        torch.cat(seen).numpy(),
+        gather_windows(xp, 37 + np.arange(35), 75).numpy())
+
+
+@pytest.mark.parametrize("t,batch,group", [
+    (130, 50, None), (130, 50, 50), (120, 50, 10), (105, 50, 10),
+    (431, 250, None)])
+def test_gate_verify_windows_equal_jax_where_jax_serves(t, batch, group):
+    """Without a group, with the group equal to the batch, and with a
+    tail that is a multiple of the group or shorter than it, the JAX
+    package's set serves, and the port's is the same."""
+    x = np.random.RandomState(1).rand(6, t, 216).astype(np.float32)
+    got = tquant._gate_verify_windows(_pad_inputs(torch.from_numpy(x), 75),
+                                      t, batch, 75, group)
+    want = jquant._gate_verify_windows(j_pad_inputs(jnp.asarray(x), 75), t,
+                                       batch, 75)
+    assert [int(w.shape[0]) for w in got] == \
+        [int(w.shape[0]) for w in want]
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+def test_gated_serve_of_a_10s_request_at_batch_250_group_50(tiny):
+    """A 10-s request (431 frames; tail 181) at the serving protocol's
+    batch 250 and group 50 with the gate on: the JAX package's
+    verification set would end in a batch of 181, which grouped attention
+    rejects; the port's set drains it as 150 + 31 and the serve answers."""
+    _, _, tm = tiny
+    grouped = SimpleUNetDoubleSelfAttn(**TINY, attn_mode="cross_batch:50")
+    grouped.load_state_dict(tm.state_dict())
+    x = torch.from_numpy(
+        np.random.RandomState(10).rand(6, 431, 216).astype(np.float32))
+    pred = predict_framewise_int8(grouped.eval(), x, batch_size=250,
+                                  group=50, cal_batches=1, gate=1e-3)
+    assert pred.shape == (431, 72) and bool(torch.isfinite(pred).all())
+    assert 0.0 <= float(pred.min()) <= float(pred.max()) <= 1.0

@@ -41,8 +41,13 @@ def _one_thread():
 
 
 def _comparable(cfg):
+    """The config as a dict; the port's ``TrainConfig.deterministic`` (on
+    by default; the JAX trainer has no such switch) is checked and left
+    out."""
     d = dataclasses.asdict(cfg)
     d["train_config"]["betas"] = tuple(d["train_config"]["betas"])
+    if "deterministic" in d["train_config"]:
+        assert d["train_config"].pop("deterministic") is True
     return d
 
 

@@ -556,3 +556,27 @@ def test_schedulers_drive_the_lr():
     train_p, _ = _toy_pipelines(200)
     hist = tr.fit(lambda e, s: train_p.batches(s, 4), lambda e, s: iter(()))
     assert hist["val_loss"] == [None]
+
+
+@pytest.mark.parametrize("deterministic", [True, False])
+def test_deterministic_steps_run_with_cudnn_deterministic(deterministic):
+    """``TrainConfig.deterministic`` (on by default) turns cuDNN's
+    deterministic algorithms on for each train and eval step, and the
+    flag is restored after it; off, the step leaves the flag as it is."""
+    assert TrainConfig().deterministic is True
+    seen = []
+
+    class Probe(_Toy):
+        def forward(self, x):
+            seen.append(torch.backends.cudnn.deterministic)
+            return super().forward(x)
+
+    before = torch.backends.cudnn.deterministic
+    tr = Trainer(Probe(), TrainConfig(deterministic=deterministic),
+                 device="cpu").init()
+    x = torch.rand(2, 6, 75, 216)
+    y = (torch.rand(2, 1, 1, 72) > 0.9).float()
+    tr.train_step(x, y)
+    tr.eval_step(x, y)
+    assert seen == [deterministic or before] * 2
+    assert torch.backends.cudnn.deterministic == before
