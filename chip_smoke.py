@@ -4,9 +4,11 @@
     python3 chip_smoke.py
 
 Drives the port's serving paths, audio -> HCQT -> SAUnet:XL windowed
-protocol in float32 and in int8, its training path (SAUnet:L), and the
+protocol in float32 and in int8, its training path (SAUnet:L), the
 rest of the registry's model zoo (CNN, DRCNN, Unet, SAUSnet, BLUnet and
-PUnet: serving, dense serving of the CNNs, training), in phases, and
+PUnet: serving, dense serving of the CNNs, training), and the audio-in
+path (WAV and note-event files to tuned, streamed HCQT features and
+pitch rolls, training from them and precomputing them), in phases, and
 prints each phase's result on its own line:
 
 1. device: requires CUDA, prints the card's name and power limit, and
@@ -118,7 +120,33 @@ prints each phase's result on its own line:
    minutes on one core), the CPU's max-pool choices replayed on the card:
    loss rel 1e-5; each step timed (CUDA events, 20 steps after 3
    warm-ups) with ``deterministic`` on and off, with its FLOPs and their
-   share of the float32 peak.
+   share of the float32 peak;
+10. audio:
+   a. a corpus in MusicNet's formats, synthesized from a seed on the
+      card: 6 recordings of 60 s (sums of 5-partial harmonic tones following
+      random note events, MIDI 24-96, up to 4 voices) as 44.1-kHz stereo
+      int16 WAVs, each with a MusicNet csv (sample indices at 44.1 kHz),
+      named by exp180d's split prefixes; and 20-s files in each other
+      preset's annotation format (swd, bach10, phenicx, csd) and in other
+      sample formats (uint8, float32 at 48 kHz, a 22.05-kHz ``.npy``).
+   b. each file through the load path (``load_audio``, the HCQT with its
+      tuning estimated, the roll) on the card and on the CPU (each octave
+      through the plain version): HCQT rel-to-peak 1e-5, the same
+      tunings, the same rolls; a chord detuned by +0.3 bin must read so
+      within 0.15;
+   c. a 20-min recording (51,680 frames): the whole HCQT against the same
+      HCQT through the plain version on the card (rel-to-peak 1e-5) and
+      against ``chunk_frames=8192`` (rel-to-peak 1e-5, one launch per
+      chunk), and the exact plan once; each timed, with its peak device
+      memory;
+   d. the load path of a 5-min 44.1-kHz stereo WAV split into the read
+      and resample, the tuning, the HCQT and the roll, and its seconds of
+      audio per second;
+   e. one ``run_experiment`` of exp180d at full width on ``AudioCorpus``
+      (1 epoch, 2 batches) through the test phase: its CSV, its 3
+      prediction files, 150 finite measures, one CQT launch per file;
+      then the precompute CLI on the same corpus: ``NpyCorpus`` over its
+      output must equal ``AudioCorpus.load`` bit for bit.
 
 Each path's kernel launch counts are reset just before its requests and
 read just after. Each phase's seconds are printed at the end. The line
@@ -145,6 +173,9 @@ REQUEST_SECONDS = (10.0, 4.0, 2.5)
 BATCH, GROUP = 250, 50
 HCQT_KW = dict(fs=FS, fs_hcqt_target=50, bins_per_octave=36, num_octaves=6,
                tuning=0.0)
+# AudioCorpus's HCQT (its defaults), the tuning given apart
+HCQT_AUDIO = dict(fs=FS, fs_hcqt_target=50.0, bins_per_octave=36,
+                  num_octaves=6)
 EXPERIMENT = "exp180e_musicnet_unet_insanelylarge_doubleselfattn"
 SEED = 0
 K1_TOL = 1e-5        # rel-to-peak: float32 sums over n_fft in two orders
@@ -217,6 +248,21 @@ ZOO_CHECK_WINDOWS = 4
 MAIN_PATH_BASES = ((512, 9), (512, 6), (256, 6))
 MAIN_PATH_OCTAVES = [(n_fft, HOP >> k) for n_fft, n in MAIN_PATH_BASES
                      for k in range(n)]
+# the audio phase (10): MusicNet's file formats, synthesized from a seed
+WAV_RATE = 44100                 # MusicNet's WAVs; its csv counts samples
+CORPUS_SECONDS = 60.0
+# exp180d's split prefixes: 2 train files, val (1729_), test (2303_,
+# 1819_, 2382_; also the small-set subsets)
+CORPUS_NAMES = ("1727_synth", "1730_synth", "1729_synth", "2303_synth",
+                "1819_synth", "2382_synth")
+EXTRA_SECONDS = 20.0
+LONG_SECONDS = 20 * 60.0         # ≈ 51,700 frames at 43.07 Hz
+CHUNK_FRAMES = 8192
+SPLIT_SECONDS = 300.0
+# rel-to-peak, a streamed HCQT against the whole one: the same octaves,
+# the decimating conv1d over another length may round otherwise
+STREAM_TOL = 1e-5
+DETUNE_BINS, DETUNE_TOL = 0.3, 0.15      # tests/test_dsp.py:141
 
 
 def audio(seconds, seed):
@@ -1867,6 +1913,487 @@ def phase_zoo(dev, card, procs):
     return launches
 
 
+# -- the audio phase ----------------------------------------------------------
+
+def midi_hz(midi):
+    return 440.0 * 2.0 ** ((np.asarray(midi, np.float64) - 69) / 12)
+
+
+def note_events(rng, seconds, voices):
+    """Random note events (start s, end s, MIDI 24-96, voice) of
+    ``voices`` monophonic voices: notes of 0.15-1.2 s with rests of up to
+    0.4 s between them."""
+    events = []
+    for v in range(voices):
+        t = rng.uniform(0, 0.5)
+        while t < seconds - 0.2:
+            end = min(seconds, t + rng.uniform(0.15, 1.2))
+            events.append((t, end, int(rng.randint(24, 97)), v))
+            t = end + rng.uniform(0.0, 0.4)
+    return sorted(events)
+
+
+def synth(events, seconds, rate, dev, channels=1, seed=0):
+    """Audio of ``events`` at ``rate``, made on ``dev``: each note a sum of
+    5 harmonic partials (amplitudes 0.6^k) with a random level and 10-ms
+    smoothed edges; each voice panned at random between the channels.
+    Returns (n, channels) float64 numpy, peak 0.9."""
+    import torch
+
+    rng = np.random.RandomState(seed)
+    n = int(seconds * rate)
+    voices = sorted({e[3] for e in events})
+    out = torch.zeros((n, channels), dtype=torch.float64, device=dev)
+    ramp = torch.hann_window(int(0.02 * rate), dtype=torch.float64,
+                             device=dev)
+    ramp = (ramp / ramp.sum()).view(1, 1, -1)
+    for v in voices:
+        freq = torch.zeros(n, dtype=torch.float64, device=dev)
+        gate = torch.zeros(n, dtype=torch.float64, device=dev)
+        for start, end, midi, voice in events:
+            if voice == v:
+                s0, s1 = int(start * rate), int(end * rate)
+                freq[s0:s1] = float(midi_hz(midi))
+                gate[s0:s1] = rng.uniform(0.3, 1.0)
+        phase = torch.cumsum(2 * np.pi * freq / rate, 0)
+        tone = sum(0.6 ** k * torch.sin((k + 1) * phase) for k in range(5))
+        env = torch.nn.functional.conv1d(gate.view(1, 1, -1), ramp,
+                                         padding="same").view(-1)
+        pan = [1.0]
+        if channels == 2:
+            right = rng.uniform(0.2, 0.8)
+            pan = [1 - right, right]
+        out += (tone * env)[:, None] * torch.tensor(pan, device=dev)
+    out *= 0.9 / out.abs().max()
+    return out.cpu().numpy()
+
+
+def musicnet_csv(path, events):
+    """MusicNet's csv: start/end as sample indices at 44.1 kHz."""
+    with open(path, "w") as f:
+        f.write("start_time,end_time,instrument,note,start_beat,end_beat,"
+                "note_value\n")
+        for start, end, midi, v in events:
+            f.write(f"{round(start * WAV_RATE)},{round(end * WAV_RATE)},"
+                    f"{(1, 41, 42, 43)[v]},{midi},{2 * start:.3f},"
+                    f"{2 * (end - start):.3f},Quarter\n")
+
+
+def note_name(midi):
+    names = ("C", "C#", "D", "D#", "E", "F", "F#", "G", "G#", "A", "A#", "B")
+    return f"{names[midi % 12]}{midi // 12 - 1}"
+
+
+def write_preset(path, schema, events, seconds):
+    """``events`` in the text export of a NOTE_EVENT_SCHEMAS preset."""
+    with open(path, "w") as f:
+        if schema == "swd":
+            f.write("start;end;pitch;instrument\n")
+            for start, end, midi, v in events:
+                f.write(f"{start:.4f};{end:.4f};{midi};voice{v}\n")
+        elif schema == "bach10":
+            for start, end, midi, _ in events:
+                f.write(f"{round(start * 1e3)}\t{round(end * 1e3)}\t"
+                        f"{midi}\n")
+        elif schema == "phenicx":
+            f.write("onset,offset,note\n")
+            for start, end, midi, _ in events:
+                f.write(f"{start:.3f},{end:.3f},{note_name(midi)}\n")
+        elif schema == "csd":         # one voice's f0 track, 10-ms frames
+            for i in range(int(seconds * 100)):
+                t = i / 100
+                f0 = next((midi_hz(m) for s, e, m, _ in events
+                           if s <= t < e), 0.0)
+                f.write(f"{t:.2f},{f0:.3f}\n")
+
+
+def make_corpus(root, dev):
+    """Phase 10a: the synthetic corpus in MusicNet's formats under
+    ``root/audio`` and ``root/csv`` (exp180d's split prefixes, 44.1-kHz
+    stereo int16 WAVs of 60 s), and under ``root/extra`` one file per
+    other preset and per other sample format, with the schema each needs.
+    Returns [(audio path, annotation path, schema, what)] of the extras."""
+    from scipy.io import wavfile
+
+    for sub in ("audio", "csv", "extra"):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+    for i, name in enumerate(CORPUS_NAMES):
+        rng = np.random.RandomState(SEED + 100 + i)
+        events = note_events(rng, CORPUS_SECONDS, rng.randint(1, 5))
+        y = synth(events, CORPUS_SECONDS, WAV_RATE, dev, channels=2,
+                  seed=SEED + 200 + i)
+        wavfile.write(os.path.join(root, "audio", name + ".wav"), WAV_RATE,
+                      np.round(y * 32767).astype(np.int16))
+        musicnet_csv(os.path.join(root, "csv", name + ".csv"), events)
+    extras = []
+    formats = [("swd", "swd", ".csv", "int16 stereo 44.1 kHz"),
+               ("bach10", "bach10", ".txt", "int16 stereo 44.1 kHz"),
+               ("phenicx", "phenicx", ".txt", "int16 stereo 44.1 kHz"),
+               ("csd", "csd", ".csv", "int16 stereo 44.1 kHz"),
+               ("uint8", None, ".csv", "uint8 mono 44.1 kHz"),
+               ("float32", None, ".csv", "float32 stereo 48 kHz"),
+               ("npy", None, ".csv", ".npy mono 22.05 kHz")]
+    for i, (name, schema, ext, what) in enumerate(formats):
+        rng = np.random.RandomState(SEED + 300 + i)
+        events = note_events(rng, EXTRA_SECONDS,
+                             1 if schema == "csd" else rng.randint(1, 5))
+        rate = {"float32": 48000, "npy": FS}.get(name, WAV_RATE)
+        channels = 1 if name in ("uint8", "npy") else 2
+        y = synth(events, EXTRA_SECONDS, rate, dev, channels=channels,
+                  seed=SEED + 400 + i)
+        audio_path = os.path.join(root, "extra", name + (
+            ".npy" if name == "npy" else ".wav"))
+        if name == "npy":
+            np.save(audio_path, y[:, 0].astype(np.float32))
+        elif name == "uint8":
+            wavfile.write(audio_path, rate,
+                          np.round(y[:, 0] * 127 + 128).astype(np.uint8))
+        elif name == "float32":
+            wavfile.write(audio_path, rate, y.astype(np.float32))
+        else:
+            wavfile.write(audio_path, rate,
+                          np.round(y * 32767).astype(np.int16))
+        annot = os.path.join(root, "extra", name + ext)
+        if schema is None:
+            musicnet_csv(annot, events)
+        else:
+            write_preset(annot, schema, events, EXTRA_SECONDS)
+        extras.append((audio_path, annot, schema, what))
+    return extras
+
+
+class record_tuning:
+    """Records each tuning that ``compute_efficient_hcqt`` estimates."""
+
+    def __enter__(self):
+        import multipitch_architectures_tpu_torch.dsp  # noqa: F401
+
+        self.module = sys.modules["multipitch_architectures_tpu_torch.dsp."
+                                  "hcqt"]
+        self.real = self.module.estimate_tuning
+        self.values = []
+
+        def spy(*args, **kw):
+            self.values.append(self.real(*args, **kw))
+            return self.values[-1]
+
+        self.module.estimate_tuning = spy
+        return self.values
+
+    def __exit__(self, *exc):
+        self.module.estimate_tuning = self.real
+
+
+class plain_k1:
+    """Runs every CQT work list through the kernel's plain version
+    (``cqt_octaves_reference``), on the card too."""
+
+    def __enter__(self):
+        import multipitch_architectures_tpu_torch.dsp  # noqa: F401
+        from multipitch_architectures_tpu_torch.ops.cqt_octave import (
+            cqt_octaves_reference)
+
+        self.modules = [sys.modules[f"multipitch_architectures_tpu_torch.dsp."
+                                    f"{m}"] for m in ("cqt", "hcqt")]
+        self.real = [m.cqt_octaves for m in self.modules]
+        for m in self.modules:
+            m.cqt_octaves = cqt_octaves_reference
+
+    def __exit__(self, *exc):
+        for m, real in zip(self.modules, self.real):
+            m.cqt_octaves = real
+
+
+def audio_card_vs_cpu(dev, root, extras):
+    """Phase 10b: each file through ``audio_example`` (load_audio, the
+    HCQT with its tuning estimated, the roll) on the card and on the CPU
+    (each octave through the plain version): HCQT rel-to-peak
+    ``HCQT_TOL``, the same tunings, the same rolls."""
+    from multipitch_architectures_tpu_torch.dsp import estimate_tuning
+    from multipitch_architectures_tpu_torch.experiments.runner import (
+        audio_example, annotation_path)
+
+    files = [(os.path.join(root, "audio", n + ".wav"),
+              annotation_path(os.path.join(root, "csv"), n), None,
+              "int16 stereo 44.1 kHz, musicnet csv") for n in CORPUS_NAMES]
+    files += [(a, t, s, f"{w}, {s or 'musicnet'} {os.path.splitext(t)[1]}")
+              for a, t, s, w in extras]
+    worst = 0.0
+    for audio_path, annot, schema, what in files:
+        pair = []
+        for device in (dev, "cpu"):
+            with record_tuning() as tuning:
+                pair.append(audio_example(audio_path, annot, schema=schema,
+                                          device=device) + (tuning[0],))
+        (x, roll, t_card), (x_cpu, roll_cpu, t_cpu) = pair
+        rel = float(np.abs(x - x_cpu).max() / np.abs(x_cpu).max())
+        worst = max(worst, rel)
+        if not (rel < HCQT_TOL and t_card == t_cpu and
+                np.array_equal(roll, roll_cpu) and roll.sum() > 0 and
+                np.isfinite(x).all()):
+            raise AssertionError(f"{audio_path}: card vs CPU rel {rel:.3g}, "
+                                 f"tuning {t_card} vs {t_cpu}, rolls equal "
+                                 f"{np.array_equal(roll, roll_cpu)}")
+        print(f"[audio] {os.path.basename(audio_path)} ({what}): "
+              f"{tuple(x.shape)} + roll {tuple(roll.shape)} "
+              f"({int(roll.sum())} active cells); tuning {t_card:+.2f} bin "
+              f"on both; HCQT card vs CPU rel-to-peak {rel:.3e} "
+              f"(< {HCQT_TOL:g}); rolls equal")
+    # a chord detuned by +0.3 bin must read as such
+    t = np.arange(4 * FS) / FS
+    shift = 2.0 ** (DETUNE_BINS / 36)
+    chord = sum(a * np.sin(2 * np.pi * f * shift * t)
+                for a, f in ((1.0, 261.6256), (0.5, 329.6276),
+                             (0.25, 440.0))).astype(np.float32)
+    est = estimate_tuning(chord, fs=FS, bins_per_octave=36)
+    if abs(est - DETUNE_BINS) >= DETUNE_TOL:
+        raise AssertionError(f"a +{DETUNE_BINS}-bin chord read as {est}")
+    print(f"[audio] a chord detuned by +{DETUNE_BINS} bin reads "
+          f"{est:+.2f} (within {DETUNE_TOL}); worst card vs CPU HCQT over "
+          f"{len(files)} files {worst:.3e}")
+    return worst
+
+
+def timed_hcqt(dev, y, tuning, **kw):
+    """(HCQT, seconds, K1 launches, peak device memory above the start in
+    bytes) of one ``efficient_hcqt_device`` call on an array."""
+    import torch
+
+    from multipitch_architectures_tpu_torch.dsp import efficient_hcqt_device
+    from multipitch_architectures_tpu_torch.ops.cqt_octave import cqt_octaves
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    before = cqt_octaves.launches
+    t0 = time.perf_counter()
+    out = efficient_hcqt_device(y, device=dev, tuning=tuning, **HCQT_AUDIO,
+                                **kw)[0]
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    return (out, sec, cqt_octaves.launches - before,
+            torch.cuda.max_memory_allocated() - base)
+
+
+def audio_long(dev, card):
+    """Phase 10c: a 20-min recording: the whole HCQT against the plain
+    version on the card, against ``chunk_frames=CHUNK_FRAMES`` (one launch
+    per chunk), and the exact plan once; times and peak memory."""
+    import torch
+
+    from multipitch_architectures_tpu_torch.dsp import estimate_tuning
+
+    rng = np.random.RandomState(SEED + 500)
+    y = synth(note_events(rng, LONG_SECONDS, 4), LONG_SECONDS, FS, dev,
+              seed=SEED + 501)[:, 0].astype(np.float32)
+    t0 = time.perf_counter()
+    tuning = estimate_tuning(y, fs=FS, bins_per_octave=36)
+    tuning_s = time.perf_counter() - t0
+    n_frames = len(y) // HOP + 1
+    chunks = -(-n_frames // CHUNK_FRAMES)
+    whole, first_s, launches, _ = timed_hcqt(dev, y, tuning)
+    whole, whole_s, launches_warm, whole_mem = timed_hcqt(dev, y, tuning)
+    with plain_k1():
+        plain, plain_s, plain_launches, plain_mem = timed_hcqt(dev, y,
+                                                               tuning)
+    rel_plain = rel_to_peak(whole, plain)
+    del plain
+    whole = whole.cpu().numpy()
+    streamed, stream_first_s, _, _ = timed_hcqt(dev, y, tuning,
+                                                chunk_frames=CHUNK_FRAMES)
+    streamed, stream_s, stream_launches, stream_mem = timed_hcqt(
+        dev, y, tuning, chunk_frames=CHUNK_FRAMES)
+    rel_stream = float(np.abs(streamed - whole).max() / np.abs(whole).max())
+    exact, exact_s, exact_launches, exact_mem = timed_hcqt(dev, y, tuning,
+                                                           exact=True)
+    # interior frames: the bases' longest kernels reach 2.4 s (103 frames)
+    interior = np.s_[:, 128:-128]
+    gap_exact = rel_to_peak(exact.cpu()[interior],
+                            torch.from_numpy(whole[interior]))
+    del exact
+    if not (whole.shape == (6, n_frames, 216) and launches == launches_warm
+            == 1 and plain_launches == 0 and rel_plain < HCQT_TOL
+            and stream_launches == chunks and rel_stream < STREAM_TOL
+            and streamed.shape == whole.shape and exact_launches == 1
+            and np.isfinite(whole).all()):
+        raise AssertionError(f"20-min HCQT: shape {whole.shape}, launches "
+                             f"{launches}/{launches_warm}/{plain_launches}/"
+                             f"{stream_launches} (want 1/1/0/{chunks}), "
+                             f"{exact_launches} exact; rel plain "
+                             f"{rel_plain:.3g}, streamed {rel_stream:.3g}")
+    mib = 2 ** 20
+    print(f"[audio] {LONG_SECONDS / 60:.0f}-min recording, {n_frames} "
+          f"frames: tuning {tuning:+.2f} bin in {tuning_s:.2f} s (host, "
+          f"float64); whole HCQT {whole_s * 1e3:.1f} ms warm "
+          f"({first_s * 1e3:.1f} first), 1 launch, peak "
+          f"{whole_mem / mib:.0f} MiB above the start; against the plain "
+          f"version on the card ({plain_s * 1e3:.1f} ms, peak "
+          f"{plain_mem / mib:.0f} MiB) rel-to-peak {rel_plain:.3e} "
+          f"(< {HCQT_TOL:g}); {card}")
+    print(f"[audio] streamed, chunk_frames={CHUNK_FRAMES}: {chunks} chunks, "
+          f"{stream_launches} launches; {stream_s * 1e3:.1f} ms warm "
+          f"({stream_first_s * 1e3:.1f} first; to host numpy), peak "
+          f"{stream_mem / mib:.0f} MiB; against the whole HCQT rel-to-peak "
+          f"{rel_stream:.3e} (< {STREAM_TOL:g}); exact plan (whole): "
+          f"{exact_s * 1e3:.1f} ms, 1 launch, peak {exact_mem / mib:.0f} "
+          f"MiB, {gap_exact:.3e} rel-to-peak from the multirate plan on "
+          f"interior frames (its kernel-reuse approximation)")
+    return dict(whole_s=whole_s, stream_s=stream_s, exact_s=exact_s,
+                whole_mem=whole_mem, stream_mem=stream_mem,
+                rel_plain=rel_plain, rel_stream=rel_stream)
+
+
+def audio_split(dev, root, card):
+    """Phase 10d: the load path of a 5-min 44.1-kHz stereo WAV, step by
+    step as ``audio_example`` runs it; the second of two runs (the first
+    builds the tuned plans)."""
+    import torch
+    from scipy.io import wavfile
+
+    from multipitch_architectures_tpu_torch.dsp import (
+        compute_annotation_array_nooverlap, compute_efficient_hcqt,
+        estimate_tuning)
+    from multipitch_architectures_tpu_torch.io import (load_audio,
+                                                       load_note_events)
+
+    rng = np.random.RandomState(SEED + 600)
+    events = note_events(rng, SPLIT_SECONDS, 4)
+    path = os.path.join(root, "split.wav")
+    wavfile.write(path, WAV_RATE, np.round(synth(
+        events, SPLIT_SECONDS, WAV_RATE, dev, channels=2,
+        seed=SEED + 601) * 32767).astype(np.int16))
+    musicnet_csv(os.path.join(root, "split.csv"), events)
+    for _ in range(2):
+        t = [time.perf_counter()]
+        y = load_audio(path, FS)
+        t.append(time.perf_counter())
+        tuning = estimate_tuning(y, fs=FS, bins_per_octave=36)
+        t.append(time.perf_counter())
+        f_hcqt, fs_hcqt, _ = compute_efficient_hcqt(
+            y, tuning=tuning, device=dev, **HCQT_AUDIO)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        roll = compute_annotation_array_nooverlap(
+            load_note_events(os.path.join(root, "split.csv")),
+            f_hcqt.shape[1], fs_hcqt, annot_type="pitch")
+        pair = (np.transpose(f_hcqt, (2, 1, 0)).astype(np.float32),
+                np.asarray(roll, np.float32).T)
+        t.append(time.perf_counter())
+    read_s, tuning_s, hcqt_s, roll_s = np.diff(t)
+    total = t[-1] - t[0]
+    print(f"[audio] load split, {SPLIT_SECONDS:.0f}-s 44.1-kHz stereo WAV "
+          f"({pair[0].shape[1]} frames): read + resample {read_s:.3f} s, "
+          f"tuning {tuning_s:.3f} s (host), HCQT {hcqt_s:.3f} s (card, "
+          f"synchronized, with the copy to host), roll {roll_s:.3f} s "
+          f"(host); total {total:.3f} s = {SPLIT_SECONDS / total:.0f} s of "
+          f"audio per second; {card}")
+    return dict(read_s=read_s, tuning_s=tuning_s, hcqt_s=hcqt_s,
+                roll_s=roll_s, total_s=total)
+
+
+def audio_run(dev, root):
+    """Phase 10e: exp180d at full width trained, validated and tested on
+    the corpus through ``AudioCorpus``, then the precompute CLI on the same
+    corpus, whose output through ``NpyCorpus`` must equal
+    ``AudioCorpus.load``. Returns the CQT kernel launches (one per file
+    read: each load once, cached, and each precomputed file)."""
+    import dataclasses
+
+    from multipitch_architectures_tpu_torch.experiments import (
+        AudioCorpus, NpyCorpus, load_experiment, precompute, run_experiment)
+    from multipitch_architectures_tpu_torch.ops.cqt_octave import cqt_octaves
+
+    cfg = load_experiment(TRAIN_EXPERIMENT)
+    cfg = dataclasses.replace(cfg, train_config=dataclasses.replace(
+        cfg.train_config, max_train_batches=2))
+    audio_dir, csv_dir = (os.path.join(root, d) for d in ("audio", "csv"))
+    corpus = AudioCorpus(audio_dir, csv_dir, device=dev)
+    before = cqt_octaves.launches
+    t0 = time.perf_counter()
+    res = run_experiment(cfg, corpus, os.path.join(root, "run"),
+                         logger=logging.getLogger("chip_smoke.audio"),
+                         max_epochs_override=1, device=dev)
+    sec = time.perf_counter() - t0
+    run_launches = cqt_octaves.launches - before
+    name = cfg.name
+    csv_path = os.path.join(root, "run", "results_filewise", name + ".csv")
+    preds = sorted(os.listdir(os.path.join(root, "run", "predictions",
+                                           name)))
+    measures = [v for agg in res["subsets"]
+                for m in ("filewise_mean", "framewise_mean")
+                for v in agg[m].values()]
+    if not (os.path.isfile(csv_path) and len(preds) == 3
+            and len(measures) == 3 * 2 * 25 and all(np.isfinite(measures))
+            and run_launches == len(CORPUS_NAMES)):
+        raise AssertionError(f"run_experiment on AudioCorpus: csv "
+                             f"{os.path.isfile(csv_path)}, predictions "
+                             f"{preds}, {len(measures)} measures, "
+                             f"{run_launches} CQT launches")
+    fw = res["subsets"][0]["framewise_mean"]
+    print(f"[audio] run_experiment {name} on AudioCorpus ({len(CORPUS_NAMES)}"
+          f" files of {CORPUS_SECONDS:.0f} s: 2 train, 1 val, 3 test; 1 "
+          f"epoch, 2 batches, the test phase's 3 subsets): {sec:.1f} s; CQT "
+          f"launches {run_launches} (one per file); CSV and {len(preds)} "
+          f"prediction files written; {len(measures)} measures finite; "
+          f"framewise f_measure {fw['f_measure']:.4f}")
+
+    out = os.path.join(root, "features")
+    before = cqt_octaves.launches
+    t0 = time.perf_counter()
+    if precompute.main(["--audio-dir", audio_dir, "--csv-dir", csv_dir,
+                        "--out-dir", out]) != 0:
+        raise AssertionError("the precompute CLI failed")
+    pre_s = time.perf_counter() - t0
+    pre_launches = cqt_octaves.launches - before
+    npy = NpyCorpus(os.path.join(out, "hcqt"), os.path.join(out, "pitch"))
+    gaps = []
+    for fn in corpus.files():
+        stem = os.path.splitext(fn)[0]
+        for a, b in zip(npy.load(stem + ".npy"), corpus.load(fn)):
+            gaps.append(float(np.abs(a - b).max()) if a.shape == b.shape
+                        else np.inf)
+    if max(gaps) != 0 or pre_launches != len(CORPUS_NAMES):
+        raise AssertionError(f"precompute: NpyCorpus against "
+                             f"AudioCorpus.load max abs {max(gaps)}, "
+                             f"{pre_launches} CQT launches")
+    print(f"[audio] precompute CLI on the same corpus: {pre_s:.1f} s, "
+          f"{pre_launches} CQT launches; NpyCorpus over its output equals "
+          f"AudioCorpus.load bit for bit ({len(gaps)} arrays)")
+    return run_launches + pre_launches
+
+
+def phase_audio(dev, card):
+    """Phase 10 (module docstring). Returns the CQT kernel launches of
+    its main path (the run on AudioCorpus and the precompute CLI) and the
+    numbers PERF.md keeps."""
+    import tempfile
+
+    from multipitch_architectures_tpu_torch.ops.cqt_octave import cqt_octaves
+    from multipitch_architectures_tpu_torch.ops.int8_gemm import (
+        int8_conv2d_dequant)
+
+    out = {}
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        extras = make_corpus(root, dev)
+        print(f"[audio] corpus written in {time.perf_counter() - t0:.1f} s:"
+              f" {len(CORPUS_NAMES)} x {CORPUS_SECONDS:.0f}-s 44.1-kHz "
+              f"stereo int16 WAVs with MusicNet csvs, and {len(extras)} "
+              f"files of {EXTRA_SECONDS:.0f} s in other formats")
+        out["worst_file_rel"] = audio_card_vs_cpu(dev, root, extras)
+        out.update(audio_long(dev, card))
+        out.update(audio_split(dev, root, card))
+        # the main path: the counts from 0 just before it, read just after
+        int8_conv2d_dequant.launches = cqt_octaves.launches = 0
+        launches = audio_run(dev, root)
+        if (cqt_octaves.launches != launches
+                or int8_conv2d_dequant.launches):
+            raise AssertionError(f"audio: {cqt_octaves.launches} CQT "
+                                 f"launches counted, {launches} by file; "
+                                 f"{int8_conv2d_dequant.launches} int8 GEMM")
+    return launches, out
+
+
 def main():
     import tempfile
 
@@ -1916,7 +2443,7 @@ def main():
 
 
 def run_phases(dev, card, procs, lap):
-    """Phases 2-9; returns the kernels' launches on the main paths and
+    """Phases 2-10; returns the kernels' launches on the main paths and
     their measurements."""
     phase_build()
     lap("device and build")
@@ -1956,7 +2483,14 @@ def run_phases(dev, card, procs, lap):
           f"GEMM {int8_conv2d_dequant.launches} times (int8 serving is the "
           f"SAUnet's)")
     lap("zoo")
-    return cqt_launches + zoo_launches, cqt, gemm_launches, gemm
+
+    audio_launches, _ = phase_audio(dev, card)
+    print(f"[audio] the audio path's run and precompute launched the CQT "
+          f"kernel {audio_launches} times (once per file read) and the int8 "
+          f"GEMM 0 times")
+    lap("audio")
+    return (cqt_launches + zoo_launches + audio_launches, cqt, gemm_launches,
+            gemm)
 
 
 if __name__ == "__main__":

@@ -16,7 +16,11 @@ builds its octaves' signals (the decimation chain and each reflect pad),
 then hands the whole work list to one
 :func:`..ops.cqt_octave.cqt_octaves` call: framing, product, magnitude
 and scale of every octave, in one launch of the CUDA kernel for a signal
-on the card.
+on the card. :func:`cqt_streamed` bounds the memory of a long recording
+by running it in chunks of frames, one work list per chunk
+(:func:`cqt_chunks`).
+:func:`cqt_direct_numpy` is the float64 oracle, the constant-Q
+definition evaluated directly.
 """
 
 import math
@@ -28,6 +32,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import resolve_device
 from ..ops.cqt_octave import Octave, bank_for_kernel, cqt_octaves
 
 
@@ -242,3 +247,107 @@ def _cqt_impl(y, kr, bank, scales, taps, *, hop, n_fft, n_octaves, bpo):
             y = _decimate2(y, taps)
             hop //= 2
     return octaves, out
+
+
+def cqt_context(plan: CqtPlan) -> int:
+    """Samples of real signal that a chunk of :func:`cqt_streamed` needs on
+    each side of its frames for them to equal the whole recording's:
+    the lowest octave's kernel half-support, for a multirate plan at the
+    deepest rate plus the decimation chain's reach, rounded up to a whole
+    hop so that chunk starts stay on the frame and decimation grid
+    (``hop % 2^(n_octaves-1) == 0``)."""
+    if plan.exact:
+        ctx = plan.n_ffts[0] // 2
+    else:
+        deep = 2 ** (plan.n_octaves - 1)
+        ctx = (plan.n_ffts[0] // 2) * deep + (len(plan.taps) // 2) * 2 * deep
+    return -(-ctx // plan.hop) * plan.hop
+
+
+def cqt_chunks(y, plans, chunk_frames: int):
+    """The CQTs of ``plans`` (one hop, one bins-per-octave) of the 1-D
+    float32 tensor ``y``, in chunks of ``chunk_frames`` frames: yields
+    ``(c0, c1, [each plan's frames c0..c1 as a (c1 - c0, n_bins) tensor
+    on y's device])``, the CQTs' transposes, which the next chunk
+    overwrites.
+
+    Each chunk carries the largest of the plans' :func:`cqt_context` of
+    real samples on both sides, so its frames equal the whole
+    recording's (up to the float32 rounding of the decimating convolution
+    over another length); the first and last chunks end at the
+    recording's own edges, which keep their reflect padding. All plans'
+    octaves of a chunk form one work list: one launch of the kernel per
+    chunk for up to ``MAX_ENTRIES`` octaves.
+    """
+    hop = plans[0].hop
+    bpo = plans[0].bins_per_octave
+    if any(p.hop != hop or p.bins_per_octave != bpo for p in plans):
+        raise ValueError("streamed plans must share hop and bins per octave")
+    if chunk_frames < 1:
+        raise ValueError(f"chunk_frames must be positive, got {chunk_frames}")
+    n = y.shape[0]
+    n_frames = n // hop + 1
+    ctx = max(cqt_context(p) for p in plans)
+    for c0 in range(0, n_frames, chunk_frames):
+        c1 = min(n_frames, c0 + chunk_frames)
+        s0 = max(0, c0 * hop - ctx)
+        s1 = min(n, (c1 - 1) * hop + ctx)
+        work, outs = [], []
+        for p in plans:
+            octaves, out = cqt_work_list(y[s0:s1], p)
+            work += octaves
+            outs.append(out)
+        cqt_octaves(work, bpo=bpo)
+        local0 = c0 - s0 // hop
+        yield c0, c1, [out[local0:local0 + c1 - c0, -p.n_bins:]
+                       for p, out in zip(plans, outs)]
+
+
+def cqt_streamed(y, plan: CqtPlan, chunk_frames: int = 8192,
+                 device=None) -> np.ndarray:
+    """Bounded-memory CQT of a long recording: (n_bins, n_frames) float32
+    host numpy, equal to ``cqt(y, plan)`` up to float32 rounding (see
+    :func:`cqt_chunks`). A tensor ``y`` runs where it lies; an array goes
+    to ``device``, by default the card (and raises without one unless
+    given ``device="cpu"``)."""
+    y = as_signal(y, device)
+    out = np.empty((plan.n_bins, y.shape[0] // plan.hop + 1), np.float32)
+    for c0, c1, (mag,) in cqt_chunks(y, [plan], chunk_frames):
+        out[:, c0:c1] = mag.T.cpu().numpy()
+    return out
+
+
+def as_signal(y, device=None) -> torch.Tensor:
+    """``y`` as a 1-D float32 tensor: a tensor stays where it lies (unless
+    ``device`` is given), an array goes to ``resolve_device(device)``."""
+    if isinstance(y, torch.Tensor) and device is None:
+        return y.to(torch.float32)
+    return torch.as_tensor(y, dtype=torch.float32,
+                           device=resolve_device(device))
+
+
+def cqt_direct_numpy(y, fs, hop, fmin, n_bins, bins_per_octave,
+                     filter_scale=1.0):
+    """Slow exact reference: direct time-domain correlation with full-rate
+    constant-Q kernels at every bin (the mathematical definition; float64).
+    Used by tests as the oracle for the fast multirate implementation."""
+    q = cqt_q(bins_per_octave, filter_scale)
+    y = np.asarray(y, np.float64)
+    n_frames = len(y) // hop + 1
+    out = np.zeros((n_bins, n_frames))
+    freqs = fmin * 2.0 ** (np.arange(n_bins) / bins_per_octave)
+    lengths = q * fs / freqs
+    max_len = int(np.ceil(lengths.max()))
+    pad = max_len // 2 + 1
+    yp = np.pad(y, (pad, pad), mode="reflect")
+    for k, (f, l) in enumerate(zip(freqs, lengths)):
+        ilen = int(np.ceil(l))
+        win = _hann_periodic(ilen)
+        t = np.arange(-(ilen // 2), ilen - ilen // 2)
+        phi = win * np.exp(2j * np.pi * f * t / fs)
+        phi /= np.sum(np.abs(phi))
+        for tt in range(n_frames):
+            center = tt * hop + pad
+            seg = yp[center - ilen // 2: center - ilen // 2 + ilen]
+            out[k, tt] = np.abs(np.vdot(phi, seg)) * np.sqrt(l)
+    return out

@@ -4,6 +4,6 @@
 from .configs import (BIGMIX_STRIDES, MODEL_REGISTRY, ExperimentConfig,
                       available_experiments, build_model, load_experiment,
                       shrink_for_smoke)
-from .runner import NpyCorpus, SyntheticCorpus, run_experiment
+from .runner import AudioCorpus, NpyCorpus, SyntheticCorpus, run_experiment
 from .splits import (apply_split_to_config, load_split, split_datasets,
                      split_filenames)

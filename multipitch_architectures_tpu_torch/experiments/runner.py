@@ -16,8 +16,11 @@ implementation driven by :class:`ExperimentConfig`:
   written to CSV (with the ``csv`` module, in pandas' layout: the
   machine with the card has no pandas).
 
-Not yet ported: ``AudioCorpus`` (training from audio) and the test
-phase's dispatch sharded over several devices (ROADMAP queue 1).
+Corpora: precomputed ``.npy`` features (:class:`NpyCorpus`), audio and
+note-event files turned into features at load time (:class:`AudioCorpus`,
+the HCQT on the device) and synthetic data (:class:`SyntheticCorpus`).
+The test phase's dispatch sharded over several devices is left out by
+design: the port runs on one card.
 """
 
 import csv
@@ -26,6 +29,7 @@ import logging
 import math
 import os
 import zlib
+from collections import OrderedDict
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -65,6 +69,112 @@ class NpyCorpus:
             np.load(os.path.join(self.data_dir, fn)), (2, 1, 0))
         targets = np.load(os.path.join(self.annot_dir, fn)).T
         return inputs.astype(np.float32), targets.astype(np.float32)
+
+
+def audio_example(audio_path: str, annot_path: str, *, fs: int = 22050,
+                  fs_hcqt_target: float = 50.0, bins_per_octave: int = 36,
+                  chunk_frames: Optional[int] = None, schema=None,
+                  exact: bool = False, device=None
+                  ) -> Tuple[np.ndarray, np.ndarray]:
+    """One recording's training pair from its files: the efficient HCQT
+    of the audio with its tuning estimated (6, T, 216) and the
+    rasterized pitch roll (T, 128), both float32 numpy, as
+    :meth:`NpyCorpus.load` gives them. The HCQT runs on ``device``
+    (streamed with ``chunk_frames``); reading, resampling, tuning and
+    rasterizing run on the host."""
+    from ..dsp import (compute_annotation_array_nooverlap,
+                       compute_efficient_hcqt)
+    from ..io import load_audio, load_note_events
+
+    audio = load_audio(audio_path, fs)
+    f_hcqt, fs_hcqt, _ = compute_efficient_hcqt(
+        audio, fs=fs, fs_hcqt_target=fs_hcqt_target,
+        bins_per_octave=bins_per_octave, num_octaves=6,
+        chunk_frames=chunk_frames, exact=exact, device=device)
+    events = load_note_events(annot_path, schema=schema)
+    roll = compute_annotation_array_nooverlap(
+        events, f_hcqt.shape[1], fs_hcqt, annot_type="pitch")
+    return (np.transpose(f_hcqt, (2, 1, 0)).astype(np.float32),
+            np.asarray(roll, np.float32).T)
+
+
+def annotation_path(csv_dir: str, name: str) -> str:
+    """``csv_dir/<name>.csv``, else ``<name>.txt`` where only that exists."""
+    annot = os.path.join(csv_dir, name + ".csv")
+    txt = os.path.join(csv_dir, name + ".txt")
+    if not os.path.exists(annot) and os.path.exists(txt):
+        return txt
+    return annot
+
+
+@dataclass
+class AudioCorpus:
+    """Train directly from audio, with no precompute step (the reference
+    requires notebook-01 precomputation to .npy first).
+
+    ``audio_dir/<name>.wav|.npy`` + ``csv_dir/<name>.csv|.txt``
+    (MusicNet/SWD auto-detected; Bach10, PHENICX-Anechoic,
+    ChoralSingingDataset and custom formats via ``annotation_schema``,
+    io.NOTE_EVENT_SCHEMAS) → the efficient HCQT on ``device`` (the card
+    unless ``"cpu"``; streamed via ``chunk_frames`` for long recordings)
+    and the rasterized pitch roll (:func:`audio_example`), computed at
+    load time and LRU-cached in the process (an epoch re-reads every
+    file).
+
+    Memory: the float32 HCQT is 6×216×4 B per frame at ≈ 43 Hz ≈ 13.4 MB
+    per minute of audio, so a MusicNet-scale corpus (≈ 34 h) is ≈ 27 GB;
+    the default ``cache_bytes`` (8 GiB ≈ 10 h of audio) bounds what stays
+    resident, and the least recently used recordings are computed again
+    on the next epoch. ``cache_bytes=None`` leaves the cache unbounded;
+    precompute to .npy (``experiments/precompute.py``) and use
+    :class:`NpyCorpus` where recomputation is too slow."""
+
+    audio_dir: str
+    csv_dir: str
+    fs: int = 22050
+    fs_hcqt_target: float = 50.0
+    bins_per_octave: int = 36
+    chunk_frames: Optional[int] = None
+    cache: bool = True
+    cache_bytes: Optional[int] = 8 << 30
+    #: None = auto-detect MusicNet / SWD csv; otherwise a
+    #: io.NOTE_EVENT_SCHEMAS preset name ('bach10', 'phenicx', 'csd', …)
+    #: or a custom io.NoteEventSchema column map. Annotation files may
+    #: then be .csv OR .txt (<name>.csv preferred when both exist).
+    annotation_schema: Optional[object] = None
+    device: Optional[object] = None
+
+    def __post_init__(self):
+        self.device = resolve_device(self.device)
+        self._cache: "OrderedDict[str, Tuple[np.ndarray, np.ndarray]]" = \
+            OrderedDict()
+        self._cache_nbytes = 0
+
+    def files(self) -> List[str]:
+        return sorted(fn for fn in os.listdir(self.audio_dir)
+                      if fn.endswith((".wav", ".npy")))
+
+    def load(self, fn: str) -> Tuple[np.ndarray, np.ndarray]:
+        if fn in self._cache:
+            self._cache.move_to_end(fn)               # LRU refresh
+            return self._cache[fn]
+        out = audio_example(
+            os.path.join(self.audio_dir, fn),
+            annotation_path(self.csv_dir, os.path.splitext(fn)[0]),
+            fs=self.fs, fs_hcqt_target=self.fs_hcqt_target,
+            bins_per_octave=self.bins_per_octave,
+            chunk_frames=self.chunk_frames, schema=self.annotation_schema,
+            device=self.device)
+        nbytes = out[0].nbytes + out[1].nbytes
+        if self.cache and (self.cache_bytes is None
+                           or nbytes <= self.cache_bytes):
+            self._cache[fn] = out
+            self._cache_nbytes += nbytes
+            while (self.cache_bytes is not None
+                   and self._cache_nbytes > self.cache_bytes):
+                _, old = self._cache.popitem(last=False)
+                self._cache_nbytes -= old[0].nbytes + old[1].nbytes
+        return out
 
 
 @dataclass
@@ -146,7 +256,8 @@ def run_experiment(cfg: ExperimentConfig, corpus, out_dir: str,
     raises without one unless ``device="cpu"``). Returns a results dict
     with the history and the per-subset measure aggregates.
 
-    ``corpus`` may be a single corpus (NpyCorpus/SyntheticCorpus) or a
+    ``corpus`` may be a single corpus (NpyCorpus/AudioCorpus/
+    SyntheticCorpus) or a
     list of ``(corpus, train_stride, val_stride)`` tuples for the Exp4
     big-mix protocol.
 

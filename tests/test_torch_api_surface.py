@@ -33,8 +33,6 @@ PORT = os.path.join(ROOT, "multipitch_architectures_tpu_torch")
 _DATASETS = {"dataset_context", "dataset_context_measuresegm",
              "dataset_context_segm", "dataset_context_segm_pitch",
              "dataset_context_segm_widetarget"}
-_IO = {"NOTE_EVENT_SCHEMAS", "NoteEventSchema", "load_audio",
-       "load_note_events", "note_name_to_midi"}
 _NATIVE = {"NativeWindowLoader", "build_native_library", "trainer_batches"}
 _CNNS = {"BasicCnn", "BasicCnnPool", "BasicCnnSegmBlankLogSoftmax",
          "BasicCnnSegmLogSoftmax"}
@@ -71,22 +69,9 @@ NOT_YET = {
                  "predict_framewise_exported"},
     "data/__init__.py": _DATASETS,
     "data/datasets.py": _DATASETS,
-    "dsp/__init__.py": {"compute_annotation_array",
-                        "compute_annotation_array_nooverlap",
-                        "compute_efficient_hcqt", "compute_hcqt",
-                        "cqt_direct_numpy", "cqt_streamed",
-                        "estimate_tuning"},
-    "dsp/annotation.py": {"compute_annotation_array",
-                          "compute_annotation_array_nooverlap"},
-    "dsp/cqt.py": {"cqt_direct_numpy", "cqt_streamed"},
-    "dsp/hcqt.py": {"compute_efficient_hcqt", "compute_hcqt"},
-    "dsp/tuning.py": {"estimate_tuning", "piptrack", "pitch_tuning"},
     "eval/__init__.py": _SHARED_INC,
     "eval/shared_inc.py": _SHARED_INC,
-    "experiments/__init__.py": {"AudioCorpus"},
-    "experiments/runner.py": {"AudioCorpus"},
-    "io/__init__.py": _IO | _NATIVE,
-    "io/audio.py": _IO,
+    "io/__init__.py": _NATIVE,
     "io/native_loader.py": _NATIVE,
     "models/__init__.py": _CNNS | _UNETS | _LAYERS | _ALIASES,
     "models/cnns.py": _CNNS,

@@ -1,9 +1,11 @@
 """The port stands alone: importing every module of
 ``multipitch_architectures_tpu_torch``, and ``chip_smoke.py``, loads
 neither JAX nor flax nor optax (nor the JAX package, whose subpackages
-import them). Checked in a fresh interpreter, since this test process
-already holds JAX. And its entry points never fall back to the CPU:
-without a card they raise unless given ``device="cpu"``."""
+import them), nor pandas or sklearn (the machine with the card has
+neither); reading note events loads no pandas either, lazily or not.
+Checked in a fresh interpreter, since this test process already holds
+JAX. And its entry points never fall back to the CPU: without a card
+they raise unless given ``device="cpu"``."""
 
 import os
 import subprocess
@@ -24,7 +26,8 @@ for name in names:
 import chip_smoke
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
-                                       "multipitch_architectures_tpu"))
+                                       "multipitch_architectures_tpu",
+                                       "pandas", "sklearn"))
 print(len(names), loaded)
 """
 
@@ -39,13 +42,54 @@ def test_port_imports_no_jax():
     assert loaded.strip() == "[]"
 
 
+# every preset and both auto-detected schemas, with pandas made
+# unimportable: a lazy ``import pandas`` inside the readers would raise
+NO_PANDAS = """
+import os, sys, tempfile
+sys.modules["pandas"] = None
+from multipitch_architectures_tpu_torch.io import (NOTE_EVENT_SCHEMAS,
+                                                   load_note_events)
+files = {
+    None: "start_time,end_time,instrument,note\\n0,44100,1,69\\n",
+    "musicnet": "start_time,end_time,instrument,note\\n0,44100,1,69\\n",
+    "swd": "start;end;pitch\\n0.5;1.0;69\\n",
+    "bach10": "500 1000 69\\n",
+    "phenicx": "onset,offset,note\\n0.5,1.0,A4\\n",
+    "csd": "0.5,440.0\\n0.51,440.0\\n",
+}
+files["swd auto"] = files["swd"]
+assert set(files) - {None, "swd auto"} == set(NOTE_EVENT_SCHEMAS)
+with tempfile.TemporaryDirectory() as tmp:
+    for schema, text in files.items():
+        path = os.path.join(tmp, "a.csv")
+        with open(path, "w") as f:
+            f.write(text)
+        ev = load_note_events(path, schema=None if schema in (
+            None, "swd auto") else schema)
+        assert ev.shape[1] == 3 and (ev[:, 2] == 69).all(), (schema, ev)
+print(len(files), "pandas" in sys.modules and sys.modules["pandas"])
+"""
+
+
+def test_note_events_read_without_pandas():
+    r = subprocess.run([sys.executable, "-c", NO_PANDAS], cwd=REPO,
+                       capture_output=True, text=True, timeout=120,
+                       env={**os.environ, "PYTHONPATH": REPO})
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.split() == ["7", "None"]
+
+
 def test_entry_points_raise_without_a_card_unless_given_the_cpu(
         monkeypatch, tmp_path):
     from multipitch_architectures_tpu_torch import resolve_device
     from multipitch_architectures_tpu_torch.data import (FileSpec,
                                                          TrainPipeline)
+    from multipitch_architectures_tpu_torch.dsp import (
+        compute_efficient_hcqt, compute_hcqt)
     from multipitch_architectures_tpu_torch.experiments import (
-        SyntheticCorpus, load_experiment, run_experiment, shrink_for_smoke)
+        AudioCorpus, SyntheticCorpus, load_experiment, run_experiment,
+        shrink_for_smoke)
+    from multipitch_architectures_tpu_torch.experiments import precompute
     from multipitch_architectures_tpu_torch.experiments import run as cli
     from multipitch_architectures_tpu_torch.train import TrainConfig, Trainer
 
@@ -60,11 +104,21 @@ def test_entry_points_raise_without_a_card_unless_given_the_cpu(
              lambda: run_experiment(cfg, SyntheticCorpus(cfg),
                                     str(tmp_path / "run")),
              lambda: cli.main(["--config", cfg.name, "--smoke", "--out-dir",
-                               str(tmp_path / "cli")])]
+                               str(tmp_path / "cli")]),
+             lambda: compute_efficient_hcqt(np.zeros(2048, np.float32)),
+             lambda: compute_hcqt(np.zeros(2048, np.float32)),
+             lambda: AudioCorpus(str(tmp_path), str(tmp_path)).load("a.wav"),
+             lambda: cli.main(["--config", cfg.name, "--audio-dir",
+                               str(tmp_path), "--csv-dir", str(tmp_path),
+                               "--out-dir", str(tmp_path / "cli")]),
+             lambda: precompute.main(["--audio-dir", str(tmp_path),
+                                      "--csv-dir", str(tmp_path),
+                                      "--out-dir", str(tmp_path / "pre")])]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
-    assert not (tmp_path / "run").exists()     # raised before any work
+    for out in ("run", "cli", "pre"):             # raised before any work
+        assert not (tmp_path / out).exists()
     assert resolve_device("cpu") == torch.device("cpu")
     assert len(TrainPipeline(files, device="cpu")) == 0
     assert Trainer(torch.nn.Linear(2, 2), TrainConfig(),
