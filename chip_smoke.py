@@ -8,7 +8,10 @@ protocol in float32 and in int8, its training path (SAUnet:L), the
 rest of the registry's model zoo (CNN, DRCNN, Unet, SAUSnet, BLUnet and
 PUnet: serving, dense serving of the CNNs, training), and the audio-in
 path (WAV and note-event files to tuned, streamed HCQT features and
-pitch rolls, training from them and precomputing them), in phases, and
+pitch rolls, training from them and precomputing them), and serving
+beyond the windowed protocol (shared ``inc``, exported artifacts in
+float32 and int8, percentile calibration, the PUnet's int8 aux head), in
+phases, and
 prints each phase's result on its own line:
 
 1. device: requires CUDA, prints the card's name and power limit, and
@@ -147,6 +150,33 @@ prints each phase's result on its own line:
       prediction files, 150 finite measures, one CQT launch per file;
       then the precompute CLI on the same corpus: ``NpyCorpus`` over its
       output must equal ``AudioCorpus.load`` bit for bit.
+
+11. serving-2: exp180e as in phase 5 on 10-s and 30-s requests (the HCQT
+   through K1):
+   a. ``predict_framewise_shared`` (the ``inc`` interior shared across
+      windows) against ``predict_framewise``: max abs 1e-4; both timed in
+      turns (3 repeats each, with peak memory); the 10-s request split by
+      CUDA events into the dense precompute, the assembly and the rest;
+   b. shared-inc int8 on the 10-s request, scales from its first fused
+      batch: 19 K2/K3 launches per int8 batch (``inc`` stays float32), its
+      worst-of-25 drift against float32 beside the windowed int8 mode's
+      on the same scales, its time;
+   c. the float32 artifact (``serve.export_window_forward``, batch 250,
+      ``grouped:50``) written to a file and served by a fresh process that
+      imports only the port's ``serve``: the 10-s request's 431 frames go
+      as 250 and a tail of 181 padded to 250, the warning must name the
+      last 31 frames, every other frame within 1e-5 of
+      ``predict_framewise``; export, load and request times and bytes;
+   d. the int8 artifact with b's scales: two batches of 250 windows equal
+      to the eager ``quantize_convs`` forward within 1e-6, 21 K2/K3
+      launches per batch counted from inside the artifact;
+   e. percentile (99.9) scales of one batch of 250, card vs CPU (rel
+      1e-6, per tensor and per channel) and timed; PUnet:XL (exp195f)
+      ``predict_framewise_int8(return_aux=True)`` on the 10-s request: the
+      calibration span's aux rows equal to float32 within 1e-6;
+   f. ``utils.count_macs`` of exp180e per window (the JAX package: 41.60
+      G), and a ``utils.trace`` of one shared-inc request: its device idle
+      share and top kernels.
 
 Each path's kernel launch counts are reset just before its requests and
 read just after. Each phase's seconds are printed at the end. The line
@@ -655,9 +685,7 @@ def phase_serving(dev, card):
 def device_profile(fn, top=8):
     """One profiled call of ``fn`` (torch.profiler, CPU and CUDA): returns
     (device idle share, host wall in s, [(kernel, device ms)] of the
-    ``top`` kernels by device time). Busy time is the union of the device
-    kernels' intervals; idle share is the rest of the host wall time of
-    the call. The share is None when the trace holds no device kernel."""
+    ``top`` kernels by device time); see :func:`trace_summary`."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -667,6 +695,17 @@ def device_profile(fn, top=8):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    return trace_summary(prof, wall, top)
+
+
+def trace_summary(prof, wall, top=8):
+    """(device idle share, ``wall``, [(kernel, device ms)] of the ``top``
+    kernels by device time) of a finished profile. Busy time is the union
+    of the device kernels' intervals; idle share is the rest of the host
+    wall time of the call. The share is None when the trace holds no
+    device kernel."""
+    import torch
+
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kernels:
@@ -2394,6 +2433,439 @@ def phase_audio(dev, card):
     return launches, out
 
 
+# the serving-2 phase (11): shared inc, serving artifacts, the int8 mode's
+# remaining options
+SHARED_SECONDS = (10.0, 30.0)
+SHARED_REPEATS = 3
+SHARED_INT8_CONVS = 19         # exp180e's 21 quantized convs but inc's two
+ARTIFACT_TOL = 1e-5            # the artifact's frames against eager
+PERCENTILE = 99.9
+PERCENTILE_RTOL = 1e-6
+EXP180E_GMACS = 41.60          # the JAX package's count_macs per window
+# the artifact's 10-s request in a fresh process that imports only the
+# port's serve module (and torch, numpy): its load, a cold and a warm
+# request, the duplicate-padded tail's warning, and the modules it
+# imported
+ARTIFACT_CHILD = r"""
+import json, sys, time, warnings
+t0 = time.perf_counter()
+import numpy as np
+import torch
+from multipitch_architectures_tpu_torch import set_f32_parity
+from multipitch_architectures_tpu_torch.serve import (
+    load_window_forward, predict_framewise_exported)
+t_import = time.perf_counter() - t0
+set_f32_parity()
+artifact, features, out = sys.argv[1:4]
+t0 = time.perf_counter()
+with open(artifact, "rb") as f:
+    fn = load_window_forward(f.read())
+torch.cuda.synchronize()
+t_load = time.perf_counter() - t0
+f = torch.from_numpy(np.load(features)).cuda()
+times, caught = [], []
+for _ in range(2):
+    with warnings.catch_warnings(record=True) as w:
+        warnings.simplefilter("always")
+        t0 = time.perf_counter()
+        pred = predict_framewise_exported(fn, f,
+                                          batch_size=fn.meta["batch_size"])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    caught += [str(x.message) for x in w]
+np.save(out, pred.cpu().numpy())
+print(json.dumps(dict(
+    import_s=t_import, load_s=t_load, request_s=times, warnings=caught,
+    meta=fn.meta, modules=sorted(m for m in sys.modules
+                                 if m.startswith("multipitch")))))
+"""
+
+
+def timed_request(fn):
+    """(``fn()``, host seconds, peak device MiB): one call, the card
+    synchronised, the peak counted from this call."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, time.perf_counter() - t0,
+            torch.cuda.max_memory_allocated() / 2 ** 20)
+
+
+def shared_split(model, f):
+    """CUDA-event split of one shared-inc request: the dense precompute,
+    then per batch of the drain the assembly and the rest of the model.
+    Returns (precompute ms, assemble ms, rest ms), summed over batches."""
+    import torch
+
+    from multipitch_architectures_tpu_torch.eval.inference import (
+        _next_batch_size, _pad_inputs)
+    from multipitch_architectures_tpu_torch.eval.shared_inc import (
+        SharedIncForward)
+
+    fwd = SharedIncForward(model)
+    t = f.shape[1]
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    events[0].record()
+    ln, inc = fwd.precompute(_pad_inputs(torch.log1p(10.0 * f), 75))
+    events[1].record()
+    marks, start = [], 0
+    while start < t:
+        n = _next_batch_size(t - start, BATCH, GROUP)
+        e = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        e[0].record()
+        x1 = fwd.assemble(ln, inc, 37 + start + np.arange(n))
+        e[1].record()
+        with torch.no_grad():
+            fwd.rest(x1)
+        e[2].record()
+        marks.append(e)
+        start += n
+    torch.cuda.synchronize()
+    return (events[0].elapsed_time(events[1]),
+            sum(e[0].elapsed_time(e[1]) for e in marks),
+            sum(e[1].elapsed_time(e[2]) for e in marks))
+
+
+def percentile_card_vs_cpu(model, x):
+    """Each quantized conv's input for the batch ``x``: its 99.9th
+    percentile of |x|, per tensor and per channel, on the card and on the
+    CPU. Returns the worst relative gap."""
+    import torch
+
+    from multipitch_architectures_tpu_torch.eval import (eligible_convs,
+                                                         percentile_abs)
+
+    worst = [0.0]
+
+    def hook(_, args):
+        a = args[0]
+        for per_channel in (False, True):
+            card = percentile_abs(a, PERCENTILE, per_channel).cpu()
+            cpu = percentile_abs(a.cpu(), PERCENTILE, per_channel)
+            worst[0] = max(worst[0], float(((card - cpu).abs()
+                                            / cpu.abs()).max()))
+
+    handles = [m.register_forward_pre_hook(hook)
+               for _, m in eligible_convs(model)]
+    try:
+        with torch.no_grad():
+            model(x)
+    finally:
+        for h in handles:
+            h.remove()
+    return worst[0]
+
+
+def serving2_shared(dev, card, model, feats):
+    """11a: shared-inc against windowed, float32, each request timed in
+    turns; the split of the 10-s request. Returns the windowed outputs."""
+    import torch
+
+    from multipitch_architectures_tpu_torch.eval import (
+        predict_framewise, predict_framewise_shared)
+
+    windowed = {}
+    for seconds, f in feats.items():
+        def plain():
+            return predict_framewise(model, f, batch_size=BATCH, group=GROUP)
+
+        def shared():
+            return predict_framewise_shared(model, f, batch_size=BATCH,
+                                            group=GROUP)
+
+        want, got = plain(), shared()                  # warm-ups
+        gap = float((got - want).abs().max())
+        if not gap <= MODEL_TOL:
+            raise AssertionError(f"shared-inc {seconds}-s request against "
+                                 f"windowed: max abs {gap:.3g}")
+        times = {"windowed": [], "shared": []}
+        peaks = {}
+        for _ in range(SHARED_REPEATS):
+            for name, fn in (("windowed", plain), ("shared", shared)):
+                _, wall, peak = timed_request(fn)
+                times[name].append(wall * 1e3)
+                peaks[name] = peak
+        w, sh = (np.mean(times[k]) for k in ("windowed", "shared"))
+        print(f"[serving-2] shared-inc {seconds:>4} s ({f.shape[1]} frames):"
+              f" max abs {gap:.3e} from windowed (<= {MODEL_TOL:g}); "
+              f"windowed {', '.join(f'{t:.1f}' for t in times['windowed'])}"
+              f" ms (peak {peaks['windowed']:.0f} MiB), shared "
+              f"{', '.join(f'{t:.1f}' for t in times['shared'])} ms (peak "
+              f"{peaks['shared']:.0f} MiB): shared {100 * (sh / w - 1):+.2f} "
+              f"% ({seconds * 1e3 / sh:.2f}x real time); {card}")
+        windowed[seconds] = want
+    pre, asm, rest = shared_split(model, feats[SHARED_SECONDS[0]])
+    print(f"[serving-2] shared-inc {SHARED_SECONDS[0]} s split by CUDA "
+          f"events: precompute {pre:.3f} ms, assemble {asm:.3f} ms, rest "
+          f"{rest:.3f} ms")
+    return windowed
+
+
+def serving2_int8(dev, card, model, f, want):
+    """11b: shared-inc int8 on the 10-s request, scales from its first
+    fused batch; beside the windowed int8 mode on the same scales.
+    Returns (the scales, K2/K3 launches)."""
+    import torch
+
+    from multipitch_architectures_tpu_torch.data import gather_windows
+    from multipitch_architectures_tpu_torch.eval import (
+        calibrate_activation_scales, measure_drift, predict_framewise,
+        predict_framewise_shared, quantize_convs)
+    from multipitch_architectures_tpu_torch.eval.inference import _pad_inputs
+    from multipitch_architectures_tpu_torch.ops.int8_gemm import (
+        int8_conv2d_dequant)
+
+    xp = _pad_inputs(torch.log1p(10.0 * f), 75)
+    scales = calibrate_activation_scales(
+        model, [gather_windows(xp, 37 + np.arange(BATCH), 75)])
+    predict_framewise_shared(model, f, batch_size=BATCH, group=GROUP,
+                             activation_scales=scales)         # warm-up
+    int8_conv2d_dequant.launches = 0
+    got, wall, peak = timed_request(lambda: predict_framewise_shared(
+        model, f, batch_size=BATCH, group=GROUP, activation_scales=scales))
+    launches = int8_conv2d_dequant.launches
+    batches = len(int8_batch_sizes(f.shape[1], BATCH, GROUP, 0))
+    if launches != SHARED_INT8_CONVS * batches:
+        raise AssertionError(f"shared-inc int8: {launches} K2/K3 launches "
+                             f"in {batches} batches, want "
+                             f"{SHARED_INT8_CONVS} per batch")
+    windowed = predict_framewise(quantize_convs(model, activation_scales=
+                                                scales), f, batch_size=BATCH,
+                                 group=GROUP)
+    ref = want.cpu().numpy()
+    worst = {}
+    for name, pred in (("shared", got), ("windowed", windowed)):
+        drift, _ = measure_drift(ref, pred.cpu().numpy())
+        worst[name] = max(drift.values())
+    print(f"[serving-2] shared-inc int8 {SHARED_SECONDS[0]} s: {launches} "
+          f"K2/K3 launches ({SHARED_INT8_CONVS} per batch x {batches}); "
+          f"worst-of-25 drift against float32 {worst['shared']:.3e} "
+          f"(windowed int8 on the same scales {worst['windowed']:.3e}); "
+          f"{wall * 1e3:.1f} ms, peak {peak:.0f} MiB; {card}")
+    return scales, launches
+
+
+def serving2_artifact(dev, card, model, f, want, tmp):
+    """11c: the float32 artifact, exported here and served by a fresh
+    process."""
+    import torch
+
+    from multipitch_architectures_tpu_torch.serve import export_window_forward
+
+    t0 = time.perf_counter()
+    blob = export_window_forward(model, batch_size=BATCH,
+                                 batch_mode=f"grouped:{GROUP}",
+                                 meta=dict(model=EXPERIMENT))
+    t_export = time.perf_counter() - t0
+    artifact = os.path.join(tmp, "exp180e_f32.mptpu")
+    with open(artifact, "wb") as fh:
+        fh.write(blob)
+    features = os.path.join(tmp, "request.npy")
+    np.save(features, f.cpu().numpy())
+    out = os.path.join(tmp, "artifact_pred.npy")
+    child = subprocess.run(
+        [sys.executable, "-c", ARTIFACT_CHILD, artifact, features, out],
+        capture_output=True, text=True, timeout=600,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    if child.returncode:
+        raise RuntimeError(f"the artifact's process failed:\n"
+                           f"{child.stderr[-4000:]}")
+    res = json.loads(child.stdout.strip().splitlines()[-1])
+    t = f.shape[1]
+    tail = (t % BATCH) % GROUP
+    got = torch.from_numpy(np.load(out))
+    gap = float((got[:t - tail] - want.cpu()[:t - tail]).abs().max())
+    gap_tail = float((got[t - tail:] - want.cpu()[t - tail:]).abs().max())
+    named = [w for w in res["warnings"] if f"last {tail} frames" in w]
+    models = [m for m in res["modules"] if ".models" in m]
+    if not gap <= ARTIFACT_TOL or not named or models:
+        raise AssertionError(f"float32 artifact: max abs {gap:.3g} over the "
+                             f"first {t - tail} frames; warnings "
+                             f"{res['warnings']}; model modules {models}")
+    print(f"[serving-2] float32 artifact (batch {BATCH}, grouped:{GROUP}): "
+          f"{len(blob):,} bytes, export {t_export:.2f} s; a fresh process "
+          f"(import {res['import_s']:.2f} s, no model code: "
+          f"{len(res['modules'])} port modules) loads it in "
+          f"{res['load_s']:.2f} s and serves the {SHARED_SECONDS[0]}-s "
+          f"request in {res['request_s'][0] * 1e3:.1f} ms cold, "
+          f"{res['request_s'][1] * 1e3:.1f} ms warm; {t - tail} frames "
+          f"within {gap:.3e} of predict_framewise (<= {ARTIFACT_TOL:g}), "
+          f"the last {tail} {gap_tail:.3e} (warned: {named[0][:60]}...); "
+          f"{card}")
+
+
+def serving2_int8_artifact(dev, card, model, scales, f):
+    """11d: the int8 artifact with 11b's scales, loaded here: two batches
+    of 250 windows against the eager quantized forward, its K2/K3
+    launches counted from inside the artifact. Returns the launches."""
+    import torch
+
+    from multipitch_architectures_tpu_torch.data import gather_windows
+    from multipitch_architectures_tpu_torch.eval import (eligible_convs,
+                                                         quantize_convs)
+    from multipitch_architectures_tpu_torch.eval.inference import _pad_inputs
+    from multipitch_architectures_tpu_torch.ops.int8_gemm import (
+        int8_conv2d_dequant)
+    from multipitch_architectures_tpu_torch.serve import (
+        export_window_forward, load_window_forward)
+
+    q = quantize_convs(model, activation_scales=scales)
+    t0 = time.perf_counter()
+    blob = export_window_forward(q, batch_size=BATCH,
+                                 batch_mode=f"grouped:{GROUP}")
+    t_export = time.perf_counter() - t0
+    fn = load_window_forward(blob, device=dev)
+    xp = _pad_inputs(torch.log1p(10.0 * f), 75)
+    xs = [gather_windows(xp, 37 + b * BATCH + np.arange(BATCH), 75)
+          for b in range(2)]
+    fn(xs[0])                                               # warm-up
+    int8_conv2d_dequant.launches = 0
+    got = [fn(x) for x in xs]
+    launches = int8_conv2d_dequant.launches
+    with torch.no_grad():
+        want = [q(x).reshape(BATCH, -1) for x in xs]
+    gap = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    n_convs = len(eligible_convs(model))
+    if launches != n_convs * len(xs) or not gap <= DEQUANT_TOL:
+        raise AssertionError(f"int8 artifact: {launches} launches for "
+                             f"{len(xs)} batches ({n_convs} convs); max abs "
+                             f"{gap:.3g} from the eager forward")
+    print(f"[serving-2] int8 artifact: {len(blob):,} bytes, export "
+          f"{t_export:.2f} s, header int8={fn.meta['int8']}; "
+          f"{launches} K2/K3 launches from inside it for {len(xs)} batches "
+          f"of {BATCH} ({n_convs} per batch); max abs {gap:.3e} from the "
+          f"eager quantize_convs forward (<= {DEQUANT_TOL:g})")
+    return launches
+
+
+def serving2_options(dev, card, model, f):
+    """11e: percentile calibration card vs CPU and timed; PUnet:XL's
+    int8 request with its aux head. Returns the K2/K3 launches."""
+    import torch
+
+    from multipitch_architectures_tpu_torch.data import gather_windows
+    from multipitch_architectures_tpu_torch.eval import (
+        calibrate_activation_scales, eligible_convs, predict_framewise,
+        predict_framewise_int8)
+    from multipitch_architectures_tpu_torch.eval.inference import _pad_inputs
+    from multipitch_architectures_tpu_torch.ops.int8_gemm import (
+        int8_conv2d_dequant)
+
+    x = gather_windows(_pad_inputs(torch.log1p(10.0 * f), 75),
+                       37 + np.arange(BATCH), 75)
+    rel = percentile_card_vs_cpu(model, x)
+    if not rel <= PERCENTILE_RTOL:
+        raise AssertionError(f"percentile scales card vs CPU: rel {rel:.3g}")
+    ms = {}
+    for name, kw in (("max", {}), ("percentile", dict(percentile=PERCENTILE)),
+                     ("percentile per channel", dict(percentile=PERCENTILE,
+                                                     per_channel=True))):
+        calibrate_activation_scales(model, [x], **kw)          # warm-up
+        _, wall, _ = timed_request(
+            lambda: calibrate_activation_scales(model, [x], **kw))
+        ms[name] = wall * 1e3
+    print(f"[serving-2] percentile {PERCENTILE} scales of one batch of "
+          f"{BATCH}, card vs CPU: worst rel {rel:.3e} (<= "
+          f"{PERCENTILE_RTOL:g}, per tensor and per channel); calibration "
+          + ", ".join(f"{k} {v:.1f} ms" for k, v in ms.items()) + f"; {card}")
+
+    pu, _ = zoo_model(ZOO_PUNET)
+    pu.eval().to(dev)
+    want, want_aux = predict_framewise(pu, f, batch_size=BATCH,
+                                       return_aux=True)
+    int8_conv2d_dequant.launches = 0
+    (got, aux), wall, _ = timed_request(lambda: predict_framewise_int8(
+        pu, f, batch_size=BATCH, cal_batches=1, return_aux=True))
+    launches = int8_conv2d_dequant.launches
+    t = f.shape[1]
+    gap = float((aux[:BATCH] - want_aux[:BATCH]).abs().max())
+    n_convs = len(eligible_convs(pu))
+    if (aux.shape != want_aux.shape or not gap <= DEQUANT_TOL
+            or launches != n_convs * len(int8_batch_sizes(t, BATCH, None, 1))
+            or not bool(torch.isfinite(aux).all())):
+        raise AssertionError(f"PUnet:XL int8 return_aux: aux "
+                             f"{tuple(aux.shape)}, calibration span max abs "
+                             f"{gap:.3g}, {launches} launches")
+    print(f"[serving-2] PUnet:XL ({ZOO_PUNET}) predict_framewise_int8("
+          f"return_aux=True), {SHARED_SECONDS[0]} s: aux {tuple(aux.shape)},"
+          f" calibration span's aux rows within {gap:.3e} of float32 (<= "
+          f"{DEQUANT_TOL:g}), the rest {float((aux[BATCH:] - want_aux[BATCH:]).abs().max()):.3e}"
+          f"; {launches} K2/K3 launches ({n_convs} convs); {wall * 1e3:.1f} "
+          f"ms")
+    del pu
+    return launches
+
+
+def serving2_profile(model, f, tmp):
+    """11f: exp180e's multiply-accumulates per window; a traced shared-inc
+    request through ``utils.trace``."""
+    import torch
+
+    from multipitch_architectures_tpu_torch.eval import (
+        predict_framewise_shared)
+    from multipitch_architectures_tpu_torch.utils import count_macs, trace
+
+    gmacs = count_macs(model, (1, 6, 75, 216)) / 1e9
+    if round(gmacs, 2) != EXP180E_GMACS:
+        raise AssertionError(f"count_macs(exp180e) {gmacs:.4f} G, the JAX "
+                             f"package gives {EXP180E_GMACS} G")
+    log_dir = os.path.join(tmp, "trace")
+    with trace(log_dir) as prof:
+        t0 = time.perf_counter()
+        predict_framewise_shared(model, f, batch_size=BATCH, group=GROUP)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    idle, wall, top = trace_summary(prof, wall, top=6)
+    size = os.path.getsize(os.path.join(log_dir, "trace.json"))
+    print(f"[serving-2] count_macs(exp180e) {gmacs:.4f} G per window (the "
+          f"JAX package: {EXP180E_GMACS} G); utils.trace of a shared-inc "
+          f"{SHARED_SECONDS[0]}-s request: {size:,} bytes, wall "
+          f"{wall * 1e3:.1f} ms, device idle "
+          + ("not measured (no device kernel in the trace)" if idle is None
+             else f"{100 * idle:.2f} %") + "; top kernels: "
+          + "; ".join(f"{n} {ms:.1f} ms" for n, ms in top))
+
+
+def phase_serving2(dev, card, tmp):
+    """Phase 11. Returns (K1 launches, K2/K3 launches) of its main paths:
+    the two requests' HCQTs; the shared-inc int8 request, the int8
+    artifact's batches and the PUnet's int8 request."""
+    import torch
+
+    from multipitch_architectures_tpu_torch.dsp import hcqt
+    from multipitch_architectures_tpu_torch.experiments import load_experiment
+    from multipitch_architectures_tpu_torch.models import init_parameters
+    from multipitch_architectures_tpu_torch.ops.cqt_octave import cqt_octaves
+
+    model = load_experiment(EXPERIMENT).build_model(
+        attn_mode=f"cross_batch:{GROUP}")
+    init_parameters(model, torch.Generator().manual_seed(SEED))
+    model.eval().to(dev)
+    cqt_octaves.launches = 0
+    feats = {s: hcqt(audio(s, SEED + 11 + i), device=dev, **HCQT_KW)[0]
+             for i, s in enumerate(SHARED_SECONDS)}
+    cqt_launches = cqt_octaves.launches
+    if cqt_launches != len(feats):
+        raise AssertionError(f"{cqt_launches} K1 launches for "
+                             f"{len(feats)} HCQTs")
+    f10 = feats[SHARED_SECONDS[0]]
+    windowed = serving2_shared(dev, card, model, feats)
+    scales, shared_launches = serving2_int8(dev, card, model, f10,
+                                            windowed[SHARED_SECONDS[0]])
+    serving2_artifact(dev, card, model, f10, windowed[SHARED_SECONDS[0]],
+                      tmp)
+    artifact_launches = serving2_int8_artifact(dev, card, model, scales,
+                                               feats[SHARED_SECONDS[1]])
+    punet_launches = serving2_options(dev, card, model, f10)
+    serving2_profile(model, f10, tmp)
+    return cqt_launches, shared_launches + artifact_launches + punet_launches
+
+
+
 def main():
     import tempfile
 
@@ -2411,7 +2883,7 @@ def main():
         # beside every phase until the zoo phase reads them
         procs = start_zoo_cpu(tmp)
         try:
-            launches = run_phases(dev, card, procs, lap)
+            launches = run_phases(dev, card, procs, lap, tmp)
         finally:
             stop(procs)
 
@@ -2442,8 +2914,8 @@ def main():
         "count": torch.cuda.device_count()}}))
 
 
-def run_phases(dev, card, procs, lap):
-    """Phases 2-10; returns the kernels' launches on the main paths and
+def run_phases(dev, card, procs, lap, tmp):
+    """Phases 2-11; returns the kernels' launches on the main paths and
     their measurements."""
     phase_build()
     lap("device and build")
@@ -2489,8 +2961,14 @@ def run_phases(dev, card, procs, lap):
           f"kernel {audio_launches} times (once per file read) and the int8 "
           f"GEMM 0 times")
     lap("audio")
-    return (cqt_launches + zoo_launches + audio_launches, cqt, gemm_launches,
-            gemm)
+
+    serving2_cqt, serving2_gemm = phase_serving2(dev, card, tmp)
+    print(f"[serving-2] the shared-inc, artifact and int8-option paths "
+          f"launched the CQT kernel {serving2_cqt} times (once per HCQT) "
+          f"and the int8 GEMM {serving2_gemm} times")
+    lap("serving-2")
+    return (cqt_launches + zoo_launches + audio_launches + serving2_cqt, cqt,
+            gemm_launches + serving2_gemm, gemm)
 
 
 if __name__ == "__main__":

@@ -5,5 +5,8 @@ from .measures import (calculate_eval_measures, calculate_single_measure,
 from .mireval import calculate_mpe_measures_mireval, midi_to_hz
 from .quant import (DRIFT_GATE_MEASURES, Int8Conv2d, auto_hybrid_int8,
                     calibrate_activation_scales, calibrate_with_predictions,
-                    eligible_convs, int8_drift_report, predict_framewise_int8,
-                    quantize_convs, quantized_conv, quantized_conv_static)
+                    eligible_convs, int8_drift_report, measure_drift,
+                    predict_framewise_int8,
+                    percentile_abs, quantize_convs, quantized_conv,
+                    quantized_conv_static)
+from .shared_inc import SharedIncForward, predict_framewise_shared

@@ -45,7 +45,8 @@ from torch import nn
 
 from ..data.windows import gather_windows
 from ..ops.int8_gemm import int8_conv2d_dequant
-from .inference import _next_batch_size, _pad_inputs, predict_framewise
+from .inference import (_first, _next_batch_size, _pad_inputs,
+                        predict_framewise)
 from .measures import calculate_eval_measures
 from .mireval import calculate_mpe_measures_mireval
 
@@ -145,17 +146,19 @@ def eligible_convs(model, min_kernel_elems: int = 4096):
             if _plain_conv(m) and m.weight.numel() >= min_kernel_elems]
 
 
-def _replaced(module, prefix, targets, scales):
-    """Shallow copy of ``module`` whose submodules named in ``targets``
-    become :class:`Int8Conv2d`, copying the modules on the way to them."""
+def _replaced(module, replacements, prefix=""):
+    """Shallow copy of ``module`` whose submodules named in
+    ``replacements`` ({module name: new module}) are replaced, copying
+    the modules on the way to them. Every other module, parameter and
+    buffer is shared."""
     new = copy.copy(module)
     new._modules = type(module._modules)()
     for name, child in module._modules.items():
         full = prefix + name
-        if full in targets:
-            child = Int8Conv2d(child, full, scales)
-        elif any(t.startswith(full + ".") for t in targets):
-            child = _replaced(child, full + ".", targets, scales)
+        if full in replacements:
+            child = replacements[full]
+        elif any(t.startswith(full + ".") for t in replacements):
+            child = _replaced(child, replacements, full + ".")
         new._modules[name] = child
     return new
 
@@ -169,23 +172,64 @@ def quantize_convs(model, min_kernel_elems: int = 4096,
     {module name: scale} dict (:func:`calibrate_activation_scales`),
     read at call time: a conv with a key runs static, one without runs
     dynamic. Excluded convs are the model's own float32 convs."""
-    targets = ({name for name, _ in eligible_convs(model, min_kernel_elems)}
-               - frozenset(exclude))
-    return _replaced(model, "", targets, activation_scales)
+    exclude = frozenset(exclude)
+    return _replaced(model, {
+        name: Int8Conv2d(conv, name, activation_scales)
+        for name, conv in eligible_convs(model, min_kernel_elems)
+        if name not in exclude})
 
 
-def _capture(model, sample_inputs, min_kernel_elems, per_channel):
+def percentile_abs(a, percentile, per_channel=False):
+    """``jnp.percentile(|a|, percentile)`` of an NCHW tensor, over all
+    its elements or, with ``per_channel``, per channel (dim 1): linear
+    interpolation between the two order statistics around
+    ``percentile / 100 · (n - 1)``, the position and weights in float32
+    as the JAX package's calibration computes them inside its compiled
+    probe (an eager ``jnp.percentile`` call may fold the two constants
+    otherwise and move the position by its last bit). The two order
+    statistics come from one ``torch.topk`` over the shorter side of the
+    position (0.1 % of the values for 99.9): ``torch.quantile`` refuses
+    more than 2^24 elements, fewer than one full-width ``inc`` input of
+    a batch of 250 holds, and ``torch.kthvalue`` of one such row runs in
+    a single block on the card."""
+    a = a.abs()
+    a = (a.transpose(0, 1).reshape(a.shape[1], -1) if per_channel
+         else a.reshape(-1))
+    n = a.shape[-1]
+    f32 = np.float32
+    last = f32(n) - f32(1)
+    pos = f32(percentile) / f32(100) * last
+    hi_w = pos - np.floor(pos)
+    lo_w = f32(1) - hi_w
+    lo = int(np.clip(np.floor(pos), 0, last))
+    hi = int(np.clip(np.ceil(pos), 0, last))
+    if lo >= n // 2:                       # ranks lo.. n-1, descending
+        top = a.topk(n - lo, dim=-1).values
+        lo_v, hi_v = top[..., -1], top[..., -1 - (hi - lo)]
+    else:                                  # ranks 0 .. hi, ascending
+        bottom = a.topk(hi + 1, dim=-1, largest=False).values
+        lo_v, hi_v = bottom[..., lo], bottom[..., hi]
+    return lo_v * float(lo_w) + hi_v * float(hi_w)
+
+
+def _capture(model, sample_inputs, min_kernel_elems, per_channel,
+             percentile=None):
     """float32 forwards over ``sample_inputs`` with a pre-hook on every
-    eligible conv. Returns ({name: max |input|, on the device}, [the
-    forwards' (B, bins) outputs])."""
+    eligible conv. Returns ({name: max over the batches of max |input|,
+    or of its ``percentile``, on the device}, [the forwards' (B, bins)
+    outputs], [their (B, n_aux) second outputs, (B, 0) for a model with
+    one output])."""
     if model.training:
         raise ValueError("calibration wants the model in eval mode")
-    maxes, preds = {}, []
+    maxes, preds, auxs = {}, [], []
 
     def hook_for(name):
         def hook(_, args):
-            a = args[0].abs()
-            v = a.amax(dim=(0, 2, 3)) if per_channel else a.amax()
+            if percentile is not None:
+                v = percentile_abs(args[0], percentile, per_channel)
+            else:
+                a = args[0].abs()
+                v = a.amax(dim=(0, 2, 3)) if per_channel else a.amax()
             maxes[name] = (torch.maximum(maxes[name], v) if name in maxes
                            else v)
         return hook
@@ -196,11 +240,14 @@ def _capture(model, sample_inputs, min_kernel_elems, per_channel):
         with torch.no_grad():
             for x in sample_inputs:
                 y = model(x)
-                preds.append(y.reshape(y.shape[0], -1))
+                aux = y[1] if isinstance(y, tuple) else None
+                preds.append(_first(y).reshape(x.shape[0], -1))
+                auxs.append(aux.reshape(x.shape[0], -1) if aux is not None
+                            else preds[-1].new_zeros((x.shape[0], 0)))
     finally:
         for h in handles:
             h.remove()
-    return maxes, preds
+    return maxes, preds, auxs
 
 
 def _scales_from_maxes(maxes, margin, per_channel):
@@ -227,28 +274,33 @@ def _scales_from_maxes(maxes, margin, per_channel):
 
 def calibrate_activation_scales(model, sample_inputs,
                                 min_kernel_elems: int = 4096,
+                                percentile: float = None,
                                 margin: float = 1.0,
                                 per_channel: bool = False):
     """Per-conv static activation scales from representative window
     batches: {module name: max |input| · margin / 127}, a scalar, or a
     (Cin,) vector with ``per_channel``, as float32 tensors on the model's
-    device. ``margin`` > 1 leaves headroom for inputs beyond the
-    calibration range."""
-    maxes, _ = _capture(model, sample_inputs, min_kernel_elems, per_channel)
+    device. ``percentile`` (e.g. 99.9): each batch gives that percentile
+    of |input| instead of its max (:func:`percentile_abs`), and the
+    batches' largest is taken. ``margin`` > 1 leaves headroom for inputs
+    beyond the calibration range."""
+    maxes, _, _ = _capture(model, sample_inputs, min_kernel_elems,
+                           per_channel, percentile)
     return _scales_from_maxes(maxes, margin, per_channel)
 
 
 def calibrate_with_predictions(model, sample_inputs,
                                min_kernel_elems: int = 4096,
                                margin: float = 1.0,
-                               per_channel: bool = False):
+                               per_channel: bool = False,
+                               percentile: float = None):
     """Per-recording calibration that keeps the float32 predictions: the
     calibration pass is a full-precision protocol forward, so its outputs
     serve the calibration windows (:func:`predict_framewise_int8`).
     Returns ``(scales, preds)``, ``preds`` a (B, bins) tensor per sample
-    batch."""
-    maxes, preds = _capture(model, sample_inputs, min_kernel_elems,
-                            per_channel)
+    batch; ``percentile`` as :func:`calibrate_activation_scales`."""
+    maxes, preds, _ = _capture(model, sample_inputs, min_kernel_elems,
+                               per_channel, percentile)
     return _scales_from_maxes(maxes, margin, per_channel), preds
 
 
@@ -262,31 +314,18 @@ DRIFT_GATE_MEASURES = (
 @torch.no_grad()
 def _predictions(model, windows):
     """(sum of B, bins) float32 numpy predictions over window batches."""
-    return torch.cat([model(x).reshape(x.shape[0], -1)
+    return torch.cat([_first(model(x)).reshape(x.shape[0], -1)
                       for x in windows]).cpu().numpy()
 
 
-def int8_drift_report(model, cal_windows, activation_scales=None,
-                      min_kernel_elems: int = 4096, threshold: float = 0.4,
-                      min_pitch: int = 24, gate: float = 1e-3, exclude=(),
-                      f32_predictions=None):
-    """Accuracy gate of the int8 serving mode. The float32 forward's own
-    thresholded predictions are pseudo-targets: for each of the 11 + 14
-    measures the drift is ``|m(pseudo, int8) - m(pseudo, f32)|`` over
-    ``cal_windows``. ``f32_predictions`` (from an earlier report on the
-    same windows) skips the float32 forward.
-
-    Returns a dict with ``worst``, ``measures``, ``skipped`` (measures
-    undefined under the pseudo-targets), ``pred_max`` / ``pred_mean``,
-    ``gate`` and ``passed`` (worst <= gate).
-    """
-    pred_f = (_predictions(model, cal_windows) if f32_predictions is None
-              else f32_predictions)
-    pred_q = _predictions(
-        quantize_convs(model, min_kernel_elems, activation_scales, exclude),
-        cal_windows)
+def measure_drift(pred_f, pred_q, threshold: float = 0.4,
+                  min_pitch: int = 24):
+    """The drift gate's measures: with ``pred_f > threshold`` as
+    pseudo-targets, ``{measure: |m(pseudo, pred_q) - m(pseudo, pred_f)|}``
+    for the 11 + 14 measures, over (T, bins) numpy predictions. Returns
+    ``(drift, skipped)``, ``skipped`` the measures undefined under the
+    pseudo-targets."""
     pseudo = (pred_f > threshold).astype(np.float32)
-
     drift, skipped = {}, []
     for m in DRIFT_GATE_MEASURES:
         with warnings.catch_warnings():     # ROC-AUC of one class: NaN
@@ -303,7 +342,29 @@ def int8_drift_report(model, cal_windows, activation_scales=None,
                                         min_pitch=min_pitch)
     for k in mf:
         drift[k] = abs(mf[k] - mq[k])
+    return drift, skipped
 
+
+def int8_drift_report(model, cal_windows, activation_scales=None,
+                      min_kernel_elems: int = 4096, threshold: float = 0.4,
+                      min_pitch: int = 24, gate: float = 1e-3, exclude=(),
+                      f32_predictions=None):
+    """Accuracy gate of the int8 serving mode. The float32 forward's own
+    thresholded predictions are pseudo-targets: for each of the 11 + 14
+    measures the drift is ``|m(pseudo, int8) - m(pseudo, f32)|`` over
+    ``cal_windows`` (:func:`measure_drift`). ``f32_predictions`` (from an
+    earlier report on the same windows) skips the float32 forward.
+
+    Returns a dict with ``worst``, ``measures``, ``skipped`` (measures
+    undefined under the pseudo-targets), ``pred_max`` / ``pred_mean``,
+    ``gate`` and ``passed`` (worst <= gate).
+    """
+    pred_f = (_predictions(model, cal_windows) if f32_predictions is None
+              else f32_predictions)
+    pred_q = _predictions(
+        quantize_convs(model, min_kernel_elems, activation_scales, exclude),
+        cal_windows)
+    drift, skipped = measure_drift(pred_f, pred_q, threshold, min_pitch)
     worst = max(drift.values()) if drift else float("inf")
     return dict(worst=worst, measures=drift, skipped=skipped,
                 pred_max=float(np.abs(pred_f - pred_q).max()),
@@ -406,7 +467,8 @@ def predict_framewise_int8(model, inputs, context: int = 75,
                            group=None, cal_batches: int = 4,
                            per_channel: bool = False,
                            min_kernel_elems: int = 4096, gate: float = None,
-                           reuse_cal_predictions: bool = True):
+                           reuse_cal_predictions: bool = True,
+                           **predict_kwargs):
     """Whole-recording framewise prediction in the int8 serving mode.
 
     Per-recording calibration: activation scales come from the first
@@ -414,7 +476,10 @@ def predict_framewise_int8(model, inputs, context: int = 75,
     forward when ``group`` is set; a recording shorter than that adds
     batches whose centres are clipped to the last frame, used for scales
     only). Then the windowed protocol runs with W8A8 convs. Arguments
-    as :func:`~multipitch_architectures_tpu_torch.eval.predict_framewise`.
+    as :func:`~multipitch_architectures_tpu_torch.eval.predict_framewise`;
+    ``predict_kwargs`` go to it (``return_aux=True`` returns ``(pred,
+    aux)``, the aux rows of the calibration span from the float32
+    calibration pass, the rest from the int8 pass).
 
     Args:
         gate: if set (e.g. 1e-3), verify the policy on the whole
@@ -450,8 +515,9 @@ def predict_framewise_int8(model, inputs, context: int = 75,
                              half + t - 1)
         cal.append(gather_windows(xp, centers, context))
 
-    scales, cal_preds = calibrate_with_predictions(
-        model, cal, min_kernel_elems, per_channel=per_channel)
+    maxes, cal_preds, cal_auxs = _capture(model, cal, min_kernel_elems,
+                                          per_channel)
+    scales = _scales_from_maxes(maxes, 1.0, per_channel)
 
     exclude = ()
     if gate is not None:
@@ -467,13 +533,20 @@ def predict_framewise_int8(model, inputs, context: int = 75,
                           f"{gate:.0e}); serving the best policy found",
                           RuntimeWarning)
 
+    return_aux = bool(predict_kwargs.get("return_aux"))
     start_frame = n_full * batch_size if reuse_cal_predictions else 0
+    # reused rows come from the full batches only: the rows beyond them
+    # belong to clipped batches
+    head = (torch.cat(cal_preds)[:min(start_frame, t)],
+            torch.cat(cal_auxs)[:min(start_frame, t)])
     if start_frame >= t:                 # the whole recording was calibrated
-        return torch.cat(cal_preds)[:t]
+        return head if return_aux else head[0]
     rest = predict_framewise(
         quantize_convs(model, min_kernel_elems, scales, exclude), x,
         context=context, batch_size=batch_size, compression=None,
-        group=group, start_frame=start_frame)
+        group=group, start_frame=start_frame, **predict_kwargs)
     if not start_frame:
         return rest
-    return torch.cat([torch.cat(cal_preds)[:start_frame], rest])
+    if return_aux:
+        return tuple(torch.cat(pair) for pair in zip(head, rest))
+    return torch.cat([head[0], rest])

@@ -42,6 +42,7 @@ from ..eval import (calculate_eval_measures, calculate_mpe_measures_mireval,
                     predict_framewise)
 from ..ops.attention import TorchMultiheadAttention
 from ..train.trainer import Trainer, _Checkpointer
+from ..utils import model_summary
 from .configs import ExperimentConfig
 
 MIREVAL_KEYS = [
@@ -280,6 +281,8 @@ def run_experiment(cfg: ExperimentConfig, corpus, out_dir: str,
     model = cfg.build_model()
     logger.info("Model: %d parameters, on %s",
                 sum(p.numel() for p in model.parameters()), device)
+    # the reference's torchinfo summary, at its input (exp180d…py:233)
+    logger.info("%s", model_summary(model, (1, 6, 174, 216)))
     tcfg = cfg.train_config
     if max_epochs_override is not None:
         tcfg = dataclasses.replace(tcfg, max_epochs=max_epochs_override)

@@ -128,22 +128,39 @@ _HEAD_CONVS = {"conv2/conv": "conv2.0", "conv3/conv": "conv3.0",
 
 
 def torch_module_name(flax_path, convdrop: Optional[float] = 0.0) -> str:
-    """A SAUnet-family conv's module path in the JAX package (``"/"``-joined
-    ``mod.path``, e.g. ``inc/conv1``, ``down1/conv2``, ``head/conv2/conv``)
-    -> its name in this package (``inc.double_conv.0``,
-    ``down1.1.double_conv.4``, ``conv2.0``), by the rules of
-    :func:`state_dict_from_flax`. The JAX package's int8 policies
-    (``activation_scales``, ``exclude``), keyed by module path, carry
-    across with it."""
+    """A conv's module path in the JAX package (``"/"``-joined
+    ``mod.path``) -> its name in this package, by the rules of
+    :func:`state_dict_from_flax`, for every family of the zoo:
+
+    - the U-Nets: ``inc/conv1`` -> ``inc.double_conv.0``, ``down1/conv2``
+      -> ``down1.1.double_conv.4``, ``down1/resize`` -> ``down1.1.resize``,
+      the PUnet's ``convP1`` / ``convP2`` -> ``convP.0`` / ``convP.4``;
+    - the segmentation CNNs: ``trunk/conv1/conv`` -> ``conv1.0``,
+      ``prefilt2/conv`` -> ``prefilt_list.2.0``;
+    - the pitch head: ``head/conv2/conv`` -> ``conv2.0`` .. ``head/conv5``
+      -> ``conv4.3`` (top-level ``conv2/conv`` .. ``conv5`` likewise).
+
+    The JAX package's int8 policies (``activation_scales``, ``exclude``),
+    keyed by module path, carry across with it. A path with no conv
+    raises ``KeyError``."""
     path = flax_path if isinstance(flax_path, str) else "/".join(flax_path)
     top, _, rest = path.partition("/")
     if top == "head" and rest in _HEAD_CONVS:
         return _HEAD_CONVS[rest]
-    if rest in ("conv1", "conv2"):
+    if top == "trunk" and rest == "conv1/conv":
+        return "conv1.0"
+    if top.startswith("prefilt") and top[7:].isdigit() and rest == "conv":
+        return f"prefilt_list.{top[7:]}.0"
+    if top in ("conv1", "conv2", "conv3", "conv4") and rest == "conv":
+        return f"{top}.0"
+    if not rest and top in ("conv5", "convP1", "convP2"):
+        return {"conv5": "conv4.3", "convP1": "convP.0",
+                "convP2": "convP.4"}[top]
+    block = (top if top == "inc" or top.startswith("upconv")
+             else f"{top}.1" if top.startswith("down") else None)
+    if block is not None and rest == "resize":
+        return f"{block}.resize"
+    if block is not None and rest in ("conv1", "conv2"):
         c1, _, c2, _ = _double_conv_indices(convdrop)
-        index = c1 if rest == "conv1" else c2
-        if top == "inc" or top.startswith("upconv"):
-            return f"{top}.double_conv.{index}"
-        if top.startswith("down"):
-            return f"{top}.1.double_conv.{index}"
-    raise KeyError(f"torch_module_name: no conv {path!r} in the SAUnet family")
+        return f"{block}.double_conv.{c1 if rest == 'conv1' else c2}"
+    raise KeyError(f"torch_module_name: no conv {path!r} in the zoo")

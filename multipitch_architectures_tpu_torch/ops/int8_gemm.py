@@ -15,10 +15,16 @@ the plain versions :func:`int8_mm_reference`,
 for tensors on the CPU. The plain versions are exact: every partial sum
 they form is an integer that their float type represents exactly, and
 the dequantize rounds each float32 step as the kernel does.
+
+The fused entry, which serving runs, goes through a registered operator,
+``torch.ops.mpt_torch.int8_conv2d_dequant`` (a CPU and a CUDA
+implementation and a fake one for shapes), so that ``torch.export``
+keeps it as one node of an exported int8 serving artifact (``serve.py``).
 """
 
 import ctypes
 import functools
+from typing import List, Optional
 
 import torch
 import torch.nn.functional as F
@@ -227,6 +233,36 @@ def _check_float(t, shape, what, device):
         raise ValueError(f"{what} must be contiguous")
 
 
+@torch.library.custom_op("mpt_torch::int8_conv2d_dequant", mutates_args=(),
+                         device_types="cpu")
+def _int8_conv2d_dequant_op(xq: torch.Tensor, wq: torch.Tensor,
+                            stride: List[int], padding: List[int],
+                            s1: torch.Tensor, s2: torch.Tensor,
+                            bias: Optional[torch.Tensor]) -> torch.Tensor:
+    """The fused entry as a PyTorch operator, so that ``torch.export``
+    keeps it as one node of a serving artifact. Its CPU implementation is
+    the plain version; its CUDA one launches the kernel."""
+    return int8_conv2d_dequant_reference(xq, wq, stride, padding, s1, s2,
+                                         bias)
+
+
+@_int8_conv2d_dequant_op.register_kernel("cuda")
+def _int8_conv2d_dequant_launch(xq, wq, stride, padding, s1, s2, bias):
+    out = torch.empty(_conv_shape(xq, wq, stride, padding),
+                      dtype=torch.float32, device=xq.device)
+    _launch_conv("int8_conv2d_dequant", xq, wq, stride, padding, out,
+                 s1.data_ptr(), s2.data_ptr(),
+                 None if bias is None else bias.data_ptr())
+    int8_conv2d_dequant.launches += 1
+    return out
+
+
+@_int8_conv2d_dequant_op.register_fake
+def _int8_conv2d_dequant_fake(xq, wq, stride, padding, s1, s2, bias):
+    return xq.new_empty(_conv_shape(xq, wq, stride, padding),
+                        dtype=torch.float32)
+
+
 def int8_conv2d_dequant(xq, wq, stride, padding, s1, s2, bias=None):
     """:func:`int8_conv2d` with the dequantize fused into the kernel's
     epilogue: float32 (N, Ho, Wo, Cout) ``((float(sums) · s1) · s2) +
@@ -237,9 +273,12 @@ def int8_conv2d_dequant(xq, wq, stride, padding, s1, s2, bias=None):
         s1: (Cout,) float32 scales; s2: a 0-dim float32 scale; bias:
             (Cout,) float32 or None. All on the operands' device.
 
-    On the CPU this is :func:`int8_conv2d_dequant_reference`. On the card
-    it launches the kernel on the current stream, or raises; each launch
-    adds one to ``int8_conv2d_dequant.launches``.
+    Checks its operands, then calls the operator
+    ``torch.ops.mpt_torch.int8_conv2d_dequant``: on the CPU
+    :func:`int8_conv2d_dequant_reference`; on the card a launch of the
+    kernel on the current stream, or a raise. Each launch adds one to
+    ``int8_conv2d_dequant.launches``, also from inside an exported
+    program.
     """
     shape = _conv_shape(xq, wq, stride, padding)
     cout = (shape[3],)
@@ -247,15 +286,8 @@ def int8_conv2d_dequant(xq, wq, stride, padding, s1, s2, bias=None):
     _check_float(s2, (), "s2", xq.device)
     if bias is not None:
         _check_float(bias, cout, "bias", xq.device)
-    if xq.device.type == "cpu":
-        return int8_conv2d_dequant_reference(xq, wq, stride, padding, s1, s2,
-                                             bias)
-    out = torch.empty(shape, dtype=torch.float32, device=xq.device)
-    _launch_conv("int8_conv2d_dequant", xq, wq, stride, padding, out,
-                 s1.data_ptr(), s2.data_ptr(),
-                 None if bias is None else bias.data_ptr())
-    int8_conv2d_dequant.launches += 1
-    return out
+    return torch.ops.mpt_torch.int8_conv2d_dequant(
+        xq, wq, list(stride), list(padding), s1, s2, bias)
 
 
 int8_mm.launches = 0

@@ -38,12 +38,16 @@ _OPERATORS = {}
 
 def _operator(n_in, n_out, dtype, device):
     """The interpolation operator cast to ``dtype`` on ``device``, made
-    once per shape, type and device."""
+    once per shape, type and device. Under ``torch.export`` it is made
+    anew and not kept: a traced tensor must not reach eager calls."""
     key = (n_in, n_out, dtype, device)
-    if key not in _OPERATORS:
-        _OPERATORS[key] = torch.from_numpy(_interp_matrix(n_in, n_out)).to(
-            device=device, dtype=dtype)
-    return _OPERATORS[key]
+    if key in _OPERATORS:
+        return _OPERATORS[key]
+    a = torch.from_numpy(_interp_matrix(n_in, n_out)).to(device=device,
+                                                         dtype=dtype)
+    if not torch.compiler.is_compiling():
+        _OPERATORS[key] = a
+    return a
 
 
 def upsample_bilinear_align_corners(x, size):

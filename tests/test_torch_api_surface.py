@@ -60,17 +60,10 @@ _ALIASES = {"basic_cnn", "basic_cnn_pool", "basic_cnn_segm_blank_logsoftmax",
             "transformer_temporal_enc_layer",
             "u_net_temporal_blstm_varlayers",
             "u_net_temporal_selfattn_varlayers"}
-_PROFILING = {"StepTimer", "device_sync", "trace"}
-_SUMMARY = {"count_macs", "model_summary"}
-_SHARED_INC = {"SharedIncForward", "predict_framewise_shared"}
 
 NOT_YET = {
-    "serve.py": {"export_window_forward", "load_window_forward",
-                 "predict_framewise_exported"},
     "data/__init__.py": _DATASETS,
     "data/datasets.py": _DATASETS,
-    "eval/__init__.py": _SHARED_INC,
-    "eval/shared_inc.py": _SHARED_INC,
     "io/__init__.py": _NATIVE,
     "io/native_loader.py": _NATIVE,
     "models/__init__.py": _CNNS | _UNETS | _LAYERS | _ALIASES,
@@ -79,10 +72,6 @@ NOT_YET = {
                                    "max_pool_with_indices_freq",
                                    "max_unpool_freq"},
     "models/unets.py": _UNETS,
-    "utils/__init__.py": _PROFILING | _SUMMARY | {"plot_matrix"},
-    "utils/plot.py": {"plot_matrix"},
-    "utils/profiling.py": _PROFILING,
-    "utils/summary.py": _SUMMARY,
 }
 
 _MESH = {"batch_sharding", "make_mesh", "replicated", "shard_params",

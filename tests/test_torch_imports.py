@@ -89,8 +89,10 @@ def test_entry_points_raise_without_a_card_unless_given_the_cpu(
     from multipitch_architectures_tpu_torch.experiments import (
         AudioCorpus, SyntheticCorpus, load_experiment, run_experiment,
         shrink_for_smoke)
+    from multipitch_architectures_tpu_torch.experiments import export
     from multipitch_architectures_tpu_torch.experiments import precompute
     from multipitch_architectures_tpu_torch.experiments import run as cli
+    from multipitch_architectures_tpu_torch.serve import load_window_forward
     from multipitch_architectures_tpu_torch.train import TrainConfig, Trainer
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -113,11 +115,18 @@ def test_entry_points_raise_without_a_card_unless_given_the_cpu(
                                "--out-dir", str(tmp_path / "cli")]),
              lambda: precompute.main(["--audio-dir", str(tmp_path),
                                       "--csv-dir", str(tmp_path),
-                                      "--out-dir", str(tmp_path / "pre")])]
+                                      "--out-dir", str(tmp_path / "pre")]),
+             lambda: load_window_forward(b""),
+             lambda: export.main(["export", "--config", cfg.name, "--out",
+                                  str(tmp_path / "art")]),
+             lambda: export.main(["predict", "--artifact",
+                                  str(tmp_path / "art"), "--hcqt",
+                                  str(tmp_path / "h.npy"), "--out",
+                                  str(tmp_path / "pred.npy")])]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
-    for out in ("run", "cli", "pre"):             # raised before any work
+    for out in ("run", "cli", "pre", "art", "pred.npy"):   # before any work
         assert not (tmp_path / out).exists()
     assert resolve_device("cpu") == torch.device("cpu")
     assert len(TrainPipeline(files, device="cpu")) == 0

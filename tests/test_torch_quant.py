@@ -20,8 +20,8 @@ from multipitch_architectures_tpu_torch import set_f32_parity
 from multipitch_architectures_tpu_torch.data import gather_windows
 from multipitch_architectures_tpu_torch.eval import (
     auto_hybrid_int8, calibrate_activation_scales, eligible_convs,
-    predict_framewise, predict_framewise_int8, quantize_convs,
-    quantized_conv, quantized_conv_static)
+    percentile_abs, predict_framewise, predict_framewise_int8,
+    quantize_convs, quantized_conv, quantized_conv_static)
 from multipitch_architectures_tpu_torch.eval import quant as tquant
 from multipitch_architectures_tpu_torch.eval.inference import _pad_inputs
 from multipitch_architectures_tpu_torch.experiments import load_experiment
@@ -29,6 +29,8 @@ from multipitch_architectures_tpu_torch.models import (
     SimpleUNetDoubleSelfAttn, state_dict_from_flax, torch_module_name)
 from multipitch_architectures_tpu_torch.ops.int8_gemm import (
     int8_conv2d, int8_conv2d_reference, int8_mm, int8_mm_reference)
+from test_torch_zoo import CASES as ZOO_CASES
+from test_torch_zoo import seeded_variables
 
 TINY = dict(n_chan_layers=(8, 8, 4, 2), n_bins_out=72, scalefac=16,
             embed_dim=32, num_heads=8, mlp_dim=64)
@@ -415,3 +417,154 @@ def test_gated_serve_of_a_10s_request_at_batch_250_group_50(tiny):
                                   group=50, cal_batches=1, gate=1e-3)
     assert pred.shape == (431, 72) and bool(torch.isfinite(pred).all())
     assert 0.0 <= float(pred.min()) <= float(pred.max()) <= 1.0
+
+
+@pytest.mark.parametrize("per_channel", [False, True])
+def test_percentile_abs_is_jnp_percentile(per_channel):
+    """``percentile_abs`` is ``jnp.percentile`` of |x| (linear
+    interpolation, per channel of an NCHW tensor with ``per_channel``) on
+    the same float32 array, compiled with the percentile a constant as
+    the JAX package's calibration probe compiles it: the same order
+    statistics, the interpolation rounded as in float32 (1e-6
+    relative)."""
+    for shape in ((3, 4, 7, 11), (2, 6, 75, 216)):     # the latter: inc's
+        x = np.random.RandomState(5).randn(*shape).astype(np.float32)
+        a = jnp.abs(jnp.asarray(x.transpose(0, 2, 3, 1)))      # NHWC
+        for q in (99.9, 50.0, 0.0, 100.0, 37.3):
+            want = np.asarray(jax.jit(
+                lambda a: jnp.percentile(a, q, axis=(0, 1, 2)) if per_channel
+                else jnp.percentile(a, q))(a))
+            got = percentile_abs(torch.from_numpy(x), q, per_channel).numpy()
+            np.testing.assert_allclose(got, want, rtol=1e-6, atol=0,
+                                       err_msg=f"{shape} {q}")
+
+
+def test_percentile_abs_beyond_torch_quantile_limit():
+    """More than 2^24 elements, where ``torch.quantile`` refuses (a
+    full-width ``inc`` input of a batch of 250 holds 24.3 M): the value
+    of ``np.percentile`` in float64, up to the float32 position's
+    rounding (n - 1 = 16,781,311 is not a float32: the position may move
+    to a neighbouring order statistic, 1.2e-6 relative here)."""
+    x = torch.from_numpy(np.random.RandomState(6).randn(
+        1, 1, 2 ** 12 + 1, 2 ** 12).astype(np.float32))
+    with pytest.raises(RuntimeError):
+        torch.quantile(x.abs().reshape(-1), 0.999)
+    a = np.abs(x.numpy()).astype(np.float64)
+    for q, per_channel in ((99.9, False), (99.9, True), (0.1, False)):
+        got = float(percentile_abs(x, q, per_channel))
+        want = np.percentile(a, q)
+        assert abs(got - want) <= 1e-5 * want, (q, per_channel)
+
+
+@pytest.mark.parametrize("per_channel", [False, True])
+def test_percentile_scales_match_jax(tiny, windows, per_channel):
+    """``calibrate_activation_scales(percentile=99.9)`` against the JAX
+    package's, through ``torch_module_name``; and below the max
+    calibration's scales. Per tensor within 1e-6 relative. Per channel
+    each scale interpolates between order statistics of a few thousand
+    values of a float32 activation that the two frameworks compute in
+    different orders (2.1e-6 relative measured on ``down1``'s second
+    conv), so it is held as the max calibration is (1e-5 of the conv's
+    largest scale); on the same array the percentile itself agrees to
+    1e-6 (``test_percentile_abs_is_jnp_percentile``)."""
+    jm, variables, tm = tiny
+    want = jquant.calibrate_activation_scales(
+        jm, variables, [jnp.asarray(windows)], percentile=99.9,
+        per_channel=per_channel)
+    got = calibrate_activation_scales(tm, [torch.from_numpy(windows)],
+                                      percentile=99.9,
+                                      per_channel=per_channel)
+    top = calibrate_activation_scales(tm, [torch.from_numpy(windows)],
+                                      per_channel=per_channel)
+    assert set(got) == {torch_module_name(k) for k in want}
+    for k, v in want.items():
+        name = torch_module_name(k)
+        if per_channel:
+            np.testing.assert_allclose(got[name].numpy(), v, rtol=0,
+                                       atol=1e-5 * np.abs(v).max(),
+                                       err_msg=k)
+        else:
+            np.testing.assert_allclose(got[name].numpy(), v, rtol=1e-6,
+                                       atol=0, err_msg=k)
+        assert bool((got[name] <= top[name]).all())
+
+
+def test_predict_framewise_int8_return_aux_matches_jax():
+    """The PUnet in the int8 mode with ``return_aux``, against the JAX
+    package's: the calibration span's rows (main and aux) are the float32
+    calibration pass's, the rest the int8 pass's (5e-3 between the two
+    programs). Three quantized convs: XLA:CPU compiles each slowly."""
+    jm, v, tm = _zoo_pair("punet")
+    inputs = np.random.RandomState(8).rand(6, 13, 216).astype(np.float32)
+    kw = dict(batch_size=8, cal_batches=1, min_kernel_elems=16384)
+    want, want_aux = jquant.predict_framewise_int8(jm, v, inputs,
+                                                   return_aux=True, **kw)
+    got, aux = predict_framewise_int8(tm, torch.from_numpy(inputs),
+                                      return_aux=True, **kw)
+    f32, f32_aux = predict_framewise(tm, torch.from_numpy(inputs),
+                                     batch_size=8, return_aux=True)
+    assert got.shape == (13, 72) and aux.shape == want_aux.shape == (13, 24)
+    np.testing.assert_array_equal(got[:8].numpy(), f32[:8].numpy())
+    np.testing.assert_array_equal(aux[:8].numpy(), f32_aux[:8].numpy())
+    assert float((aux[8:] - f32_aux[8:]).abs().max()) > 0
+    np.testing.assert_allclose(aux[:8].numpy(), want_aux[:8], atol=2e-4,
+                               rtol=0)
+    np.testing.assert_allclose(aux[8:].numpy(), want_aux[8:],
+                               atol=CROSS_PROGRAM * np.abs(want_aux).max(),
+                               rtol=0)
+    np.testing.assert_allclose(got.numpy(), want, atol=CROSS_PROGRAM, rtol=0)
+    only = predict_framewise_int8(tm, torch.from_numpy(inputs), **kw)
+    np.testing.assert_array_equal(only.numpy(), got.numpy())
+
+
+def _zoo_pair(name):
+    """(JAX model, seeded variables, the port's model with them) of one
+    family of tests/test_torch_zoo.py's tiny cases."""
+    jcls, tcls, kw, _, *gain = ZOO_CASES[name]
+    jm = jcls(**kw)
+    v = seeded_variables(jm, np.zeros((1, 6, 75, 216), np.float32),
+                         sorted(ZOO_CASES).index(name), *gain, train=False)
+    tm = tcls(**kw).eval()
+    tm.load_state_dict(state_dict_from_flax(v), strict=True)
+    return jm, v, tm
+
+
+def _flax_conv_paths(params, prefix=()):
+    """[(flax module path, HWIO kernel)] of every conv in ``params``."""
+    out = []
+    for k, p in params.items():
+        if isinstance(p, dict):
+            if "kernel" in p and np.ndim(p["kernel"]) == 4:
+                out.append(("/".join(prefix + (k,)), np.asarray(p["kernel"])))
+            else:
+                out += _flax_conv_paths(p, prefix + (k,))
+    return out
+
+
+@pytest.mark.parametrize("name", ["cnn", "drcnn", "unet", "sausnet_residual",
+                                  "blunet_depth1", "punet"])
+def test_torch_module_name_covers_every_family(name):
+    """Each JAX conv path of one tiny model per family maps to the port's
+    ``nn.Conv2d`` that holds its kernel, every conv of the port is
+    reached, and a JAX-keyed scale reaches the quantized conv of the same
+    path."""
+    jm, v, tm = _zoo_pair(name)
+    paths = _flax_conv_paths(v["params"])
+    names = {}
+    for path, kernel in paths:
+        conv = tm.get_submodule(torch_module_name(path))
+        assert isinstance(conv, torch.nn.Conv2d), path
+        np.testing.assert_array_equal(conv.weight.detach().numpy(),
+                                      kernel.transpose(3, 2, 0, 1),
+                                      err_msg=path)
+        names[path] = torch_module_name(path)
+    assert sorted(names.values()) == sorted(
+        n for n, m in tm.named_modules() if isinstance(m, torch.nn.Conv2d))
+    jax_scales = {path: float(i + 1) for i, (path, _) in enumerate(paths)}
+    scales = {names[k]: torch.tensor(s) for k, s in jax_scales.items()}
+    q = quantize_convs(tm, 1, scales)
+    for path, s in jax_scales.items():
+        m = q.get_submodule(names[path])
+        if type(m).__name__ == "Int8Conv2d":
+            assert float(m.activation_scales[m.name]) == s
+            assert m.weight is tm.get_submodule(names[path]).weight
