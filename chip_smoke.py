@@ -8,11 +8,12 @@ protocol in float32 and in int8, its training path (SAUnet:L), the
 rest of the registry's model zoo (CNN, DRCNN, Unet, SAUSnet, BLUnet and
 PUnet: serving, dense serving of the CNNs, training), and the audio-in
 path (WAV and note-event files to tuned, streamed HCQT features and
-pitch rolls, training from them and precomputing them), and serving
+pitch rolls, training from them and precomputing them), serving
 beyond the windowed protocol (shared ``inc``, exported artifacts in
-float32 and int8, percentile calibration, the PUnet's int8 aux head), in
-phases, and
-prints each phase's result on its own line:
+float32 and int8, percentile calibration, the PUnet's int8 aux head),
+the zoo's other 19 classes, and the native window loader and the
+reference-compatible datasets, in phases, and prints each phase's result
+on its own line:
 
 1. device: requires CUDA, prints the card's name and power limit, and
    sets the float32 parity flags (no TF32);
@@ -178,6 +179,44 @@ prints each phase's result on its own line:
       G), and a ``utils.trace`` of one shared-inc request: its device idle
       share and top kernels.
 
+12. zoo-2: the zoo's other 19 classes (``ZOO2``) at full width and
+   depth with seeded flax-drawn weights: the standard trunk at exp180e's
+   widths (SimpleUNet, SelfAttn, SixSelfAttn, VarLayers at depth 3,
+   AllLayers with mlp_dim 512, TransEnc with 30 channels after its conv2
+   and time_embed_dim 72 x 30, the three polyphony U-Nets), the two
+   temporal U-Nets (scalefac 2, embed_dim 1728), the four freq U-Nets
+   (scalefac 1) and the four CNNs at CNN:M's widths; attention models in
+   ``cross_batch:50`` groups. Each prints its configuration and parameter
+   count, answers a warm-up request and a 4-s request through ``hcqt``
+   and ``predict_framewise(batch_size=250, group=50)`` with one K1 launch
+   each, (T, 72) finite ((T, 73) for the bottom stack, (T, 2 x 72) and
+   (T, 2 x 73) log-probabilities for the log-softmax CNNs, the polyphony
+   heads' outputs per frame), its wall time, real-time factor and peak
+   memory printed; 4 windows card vs a CPU process started with the
+   script (atol 1e-4, the polyphony outputs included; the CPU's
+   freq-pool choices replayed where the two devices' values are within
+   1e-5, counted). One AdamW step at batch 25 (dropout 0, BatchNorm in
+   train mode) of FreqUNetDoubleSelfAttn, the temporal U-Net with
+   attention and SixSelfAttn against the CPU's step (loss rel 1e-5), the
+   CPU's pooling choices replayed. FreqUNetDoubleSelfAttn answers a 10-s
+   request through ``predict_framewise_int8(batch_size=250, group=50,
+   cal_batches=1)``: the calibration span equal to the float32 protocol
+   (1e-6), the fused K2/K3 entry launched once per quantized conv per
+   int8 batch, the worst-of-25 drift printed;
+13. loaders, on the precompute CLI's output of phase 10's corpus
+   ((216, T, 6) / (128, T)):
+   a. the native loader (its C++ source built with g++): ``fill`` of
+      1000 seeded indices equal to ``gather_windows`` bit for bit;
+   b. one epoch of ``trainer_batches`` on the card (pinned buffers,
+      ``non_blocking`` copies, ``log1p`` on the card) against
+      ``TrainPipeline`` on the same windows, in windows per second;
+   c. exp180d through ``Trainer.fit`` for 20 steps at batch 25 fed by
+      each, ms per step side by side, and 3 loader-fed steps profiled
+      (device idle share);
+   d. ``dataset_context`` with every ``aug:*`` key through a
+      ``DataLoader(pin_memory=True)`` into 3 exp180d steps: the first
+      batch's items equal to the same items built on the CPU.
+
 Each path's kernel launch counts are reset just before its requests and
 read just after. Each phase's seconds are printed at the end. The line
 before the last is a JSON object with each
@@ -273,6 +312,70 @@ ZOO_DENSE = (ZOO[0][0], ZOO[1][0])          # the CNN family serves dense too
 ZOO_TRAIN = (ZOO[1][0], ZOO_PUNET)          # bce, multitask
 ZOO_SECONDS = 10.0
 ZOO_CHECK_WINDOWS = 4
+# phase 12 ("zoo-2"): the zoo's other 19 classes at full width, (registry
+# class, configuration, batch of its requests). The standard trunk is
+# exp180e's; the reference code's own constraints fix the rest (PERF.md
+# §4): the varlayers' level 3 has 972 tokens (no positional table of 600
+# rows), AllLayers' level 1 has 75 x 216 tokens (mlp_dim 512), TransEnc's
+# temporal layers need F·C = time_embed_dim = 72 x 30, the temporal
+# U-Nets' level 5 is 864 channels x 2 bins = 1728
+Z2_TRUNK = dict(n_chan_layers=(128, 200, 150, 150), n_bins_out=72,
+                scalefac=2)
+Z2_ATTN = dict(embed_dim=256, num_heads=8, mlp_dim=8192)
+Z2_SIN = dict(pos_encoding="sinusoidal")
+Z2_TEMPORAL = dict(Z2_TRUNK, embed_dim=1728, num_heads=8, mlp_dim=8192)
+Z2_FREQ = dict(n_chan_layers=(32, 30, 20, 10), n_bins_out=72, scalefac=1)
+Z2_CNN = dict(n_chan_layers=(250, 150, 100, 100), n_bins_out=72)
+ZOO2 = (
+    ("simple_u_net", Z2_TRUNK, BATCH),
+    ("simple_u_net_selfattn", dict(Z2_TRUNK, **Z2_ATTN), BATCH),
+    ("simple_u_net_sixselfattn", dict(Z2_TRUNK, **Z2_ATTN, **Z2_SIN), BATCH),
+    ("simple_u_net_doubleselfattn_varlayers",
+     dict(Z2_TRUNK, **Z2_ATTN, self_attn_depth=3, self_attn_number=2), BATCH),
+    ("simple_u_net_doubleselfattn_alllayers",
+     dict(Z2_TRUNK, embed_dim=256, num_heads=8), BATCH),
+    ("simple_u_net_doubleselfattn_transenc",
+     dict(Z2_TRUNK, **Z2_ATTN, **Z2_SIN, n_chan_layers=(128, 30, 20, 10),
+          self_attn_depth=1, self_attn_number=2, time_embed_dim=72 * 30),
+     BATCH),
+    ("u_net_temporal_selfattn_varlayers",
+     dict(Z2_TEMPORAL, **Z2_SIN, self_attn_depth=1, self_attn_number=2),
+     BATCH),
+    ("u_net_temporal_blstm_varlayers",
+     dict(Z2_TRUNK, embed_dim=1728, hidden_size=864, lstm_depth=1,
+          lstm_number=2), BATCH),
+    ("freq_u_net", Z2_FREQ, BATCH),
+    ("freq_u_net_bottomstack", Z2_FREQ, BATCH),
+    ("freq_u_net_selfattn", dict(Z2_FREQ, embed_dim=64, num_heads=8), BATCH),
+    ("freq_u_net_doubleselfattn", dict(Z2_FREQ, embed_dim=64, num_heads=8),
+     BATCH),
+    ("simple_u_net_doubleselfattn_polyphony",
+     dict(Z2_TRUNK, **Z2_ATTN, **Z2_SIN), BATCH),
+    ("simple_u_net_doubleselfattn_polyphony_classif",
+     dict(Z2_TRUNK, **Z2_ATTN, **Z2_SIN, num_polyphony_steps=24), BATCH),
+    ("simple_u_net_polyphony_classif",
+     dict(Z2_TRUNK, num_polyphony_steps=24), BATCH),
+    ("basic_cnn", Z2_CNN, BATCH),
+    ("basic_cnn_pool", Z2_CNN, BATCH),
+    ("basic_cnn_segm_logsoftmax", dict(Z2_CNN, n_ch_out=2), BATCH),
+    ("basic_cnn_segm_blank_logsoftmax", dict(Z2_CNN, n_ch_out=2), BATCH),
+)
+ZOO2_FAMILY = {name: ("cnns" if name.startswith("basic_cnn") else
+                      "freq" if name.startswith(("freq", "u_net_temporal"))
+                      else "unets") for name, _, _ in ZOO2}
+# the freq U-Net that serves int8 and the three classes trained one step
+ZOO2_INT8 = "freq_u_net_doubleselfattn"
+ZOO2_TRAIN = ("freq_u_net_doubleselfattn", "u_net_temporal_selfattn_varlayers",
+              "simple_u_net_sixselfattn")
+ZOO2_SECONDS = 4.0
+ZOO2_INT8_SECONDS = 10.0
+
+
+def zoo2_kwargs(name):
+    """Phase 12's configuration of registry class ``name``."""
+    return dict(next(kw for n, kw, _ in ZOO2 if n == name))
+
+
 # (n_fft, octaves) of the serving HCQT's three bases, 0.5, 3 and 5: the
 # hop halves from 512 at each octave
 MAIN_PATH_BASES = ((512, 9), (512, 6), (256, 6))
@@ -1164,6 +1267,51 @@ def pool_hooks(model, indices, replay):
         for name, m in model.named_modules() if isinstance(m, nn.MaxPool2d)]
 
 
+class freq_pools:
+    """Within the block, record (``replay=False``) or replay the freq
+    U-Nets' pooling choices, ``max_pool_with_indices_freq`` as
+    ``models.unets`` calls it, in call order into or from ``indices``.
+    There the index moves the value (the unpool puts it back at the
+    index), so a window whose two largest values lie within the devices'
+    float32 gap would change the forward itself. On replay, the card's
+    own choice must agree with the recording but where the two values
+    lie within ``tol`` of each other; those windows take the recorded
+    index, and ``flips`` counts them."""
+
+    def __init__(self, indices, replay, tol=1e-5):
+        self.indices, self.replay, self.tol = indices, replay, tol
+        self.flips, self.calls = 0, 0
+
+    def __enter__(self):
+        from multipitch_architectures_tpu_torch.models import unets
+
+        self.module, self.orig = unets, unets.max_pool_with_indices_freq
+        unets.max_pool_with_indices_freq = self.pool
+        return self
+
+    def __exit__(self, *exc):
+        self.module.max_pool_with_indices_freq = self.orig
+
+    def pool(self, x, k):
+        pooled, idx = self.orig(x, k)
+        self.calls += 1
+        if not self.replay:
+            self.indices.append(idx.cpu())
+            return pooled, idx
+        want = self.indices[self.calls - 1].to(x.device)
+        xr = x.reshape(*x.shape[:-1], x.shape[-1] // k, k)
+        at = xr.gather(-1, want[..., None])[..., 0]
+        differ = want != idx
+        if bool(differ.any()):
+            gap = float((pooled - at)[differ].detach().abs().max())
+            if gap > self.tol:
+                raise AssertionError(f"freq pool: the card's choice differs "
+                                     f"from the recording by {gap:.3e}, "
+                                     f"beyond a float32 near-tie")
+            self.flips += int(differ.sum())
+        return at, want
+
+
 def train_model(name=TRAIN_EXPERIMENT, **overrides):
     from multipitch_architectures_tpu_torch.experiments import load_experiment
 
@@ -1732,16 +1880,21 @@ def zoo_train_batch(device):
 
 
 def zoo_train_model(name):
-    """``name`` for the step check: p_dropout 0 and every dropout 0."""
-    return zero_dropout(zoo_model(name, p_dropout=0.0)[0])
+    """``name`` (a registry entry of phase 9, or a class of phase 12) for
+    the step check: p_dropout 0 and every dropout 0."""
+    build = zoo2_model if name in ZOO2_FAMILY else zoo_model
+    return zero_dropout(build(name, p_dropout=0.0)[0])
 
 
 def zoo_train_config(name):
+    """The step's recipe; the loss is the registry entry's (phase 9) or
+    the BCE (phase 12's single-output classes)."""
     from multipitch_architectures_tpu_torch.experiments import load_experiment
     from multipitch_architectures_tpu_torch.train import TrainConfig
 
-    return TrainConfig(**TRAIN_STEP_CONFIG,
-                       loss=load_experiment(name).train_config.loss)
+    loss = "bce" if name in ZOO2_FAMILY else \
+        load_experiment(name).train_config.loss
+    return TrainConfig(**TRAIN_STEP_CONFIG, loss=loss)
 
 
 def zoo_cpu_step(name, path):
@@ -1758,12 +1911,21 @@ def zoo_cpu_step(name, path):
     x, y = zoo_train_batch("cpu")
     trainer = Trainer(zoo_train_model(name), zoo_train_config(name),
                       device="cpu")
-    pools = {}
+    pools, freq = {}, []
     pool_hooks(trainer.model, pools, replay=False)
     t0 = time.perf_counter()
-    loss = float(trainer.train_step(x, y))
+    with freq_pools(freq, replay=False):
+        loss = float(trainer.train_step(x, y))
     torch.save({"loss": loss, "x": x, "y": y, "pools": pools,
-                "seconds": time.perf_counter() - t0}, path)
+                "freq_pools": freq, "seconds": time.perf_counter() - t0},
+               path)
+
+
+def zoo_cpu_steps(names, path):
+    """:func:`zoo_cpu_step` of each of ``names`` in turn, in one process,
+    each written to ``path`` with the name inserted."""
+    for name in names:
+        zoo_cpu_step(name, path.replace(".pt", f"_{name}.pt"))
 
 
 def start_zoo_cpu(tmp):
@@ -1772,7 +1934,9 @@ def start_zoo_cpu(tmp):
     import multiprocessing
 
     ctx = multiprocessing.get_context("spawn")
-    jobs = {"forwards": (zoo_cpu_forwards, ())}
+    jobs = {"forwards": (zoo_cpu_forwards, ()),
+            "zoo2_forwards": (zoo2_cpu_forwards, ()),
+            "zoo2_steps": (zoo_cpu_steps, (ZOO2_TRAIN,))}
     for name in ZOO_TRAIN:
         jobs[name] = (zoo_cpu_step, (name,))
     procs = {}
@@ -1791,7 +1955,9 @@ def stop(procs):
         proc.join()
 
 
-def zoo_cpu_result(procs, what, timeout=900):
+def zoo_cpu_result(procs, what, timeout=900, part=None):
+    """The result of CPU process ``what`` (of its step ``part`` for
+    ``zoo2_steps``), waiting for the process."""
     import torch
 
     proc, path = procs[what]
@@ -1802,6 +1968,8 @@ def zoo_cpu_result(procs, what, timeout=900):
     if proc.exitcode != 0:
         raise AssertionError(f"the zoo's CPU process {what!r} failed: exit "
                              f"code {proc.exitcode}")
+    if part is not None:
+        path = path.replace(".pt", f"_{part}.pt")
     return torch.load(path, weights_only=True)
 
 
@@ -1890,10 +2058,11 @@ def zoo_serve(dev, card, name, paper, count, cpu_out):
     return launches
 
 
-def zoo_step(dev, card, name, cpu):
+def zoo_step(dev, card, name, cpu, reps=TIMED_STEPS):
     """One AdamW step of ``name`` at batch 25 on the card, the CPU's
-    max-pool choices replayed, against the CPU process's step; then the
-    step timed with ``deterministic`` on and off, and its FLOPs."""
+    max-pool choices (and freq-pool choices) replayed, against the CPU
+    process's step; then the step timed over ``reps`` steps with
+    ``deterministic`` on and off, and its FLOPs."""
     import dataclasses
 
     import torch
@@ -1905,30 +2074,35 @@ def zoo_step(dev, card, name, cpu):
     trainer = Trainer(zoo_train_model(name), cfg, device=dev)
     x, y = cpu["x"].to(dev), cpu["y"].to(dev)
     handles = pool_hooks(trainer.model, cpu["pools"], replay=True)
-    loss = float(trainer.train_step(x, y))
+    with freq_pools(cpu["freq_pools"], replay=True) as fp:
+        loss = float(trainer.train_step(x, y))
     for h in handles:
         h.remove()
     rel = abs(loss - cpu["loss"]) / abs(cpu["loss"])
+    if not np.isfinite(loss):
+        raise AssertionError(f"{name}: train step loss {loss}")
 
     def step():
         trainer.train_step(x, y)
 
-    step_ms = cuda_ms(step, reps=TIMED_STEPS, warmup=3)
+    step_ms = cuda_ms(step, reps=reps, warmup=3)
     trainer.config = dataclasses.replace(cfg, deterministic=False)
-    free_ms = cuda_ms(step, reps=TIMED_STEPS, warmup=3)
+    free_ms = cuda_ms(step, reps=reps, warmup=3)
     trainer.config = cfg
     fc = FlopCounterMode(display=False)
     with fc:
         step()
     flops = fc.get_total_flops()
     share = flops / (step_ms / 1e3) / F32_FLOP_PER_S
-    print(f"[zoo] train step {name} ({cfg.loss}) at batch {TRAIN_BATCH}, "
+    tag = "zoo-2" if name in ZOO2_FAMILY else "zoo"
+    print(f"[{tag}] train step {name} ({cfg.loss}) at batch {TRAIN_BATCH}, "
           f"card vs CPU (the CPU's max-pool choices replayed, dropout 0): "
           f"loss {loss:.6f} vs {cpu['loss']:.6f}, rel {rel:.2e} (<= "
           f"{TRAIN_LOSS_RTOL:g}; the CPU's step took {cpu['seconds']:.1f} s "
-          f"on one thread); {step_ms:.2f} ms per train_step with "
+          f"on one thread; {fp.flips} freq-pool near-ties replayed); "
+          f"{step_ms:.2f} ms per train_step with "
           f"deterministic on, {free_ms:.2f} ms off (CUDA events, "
-          f"{TIMED_STEPS} steps after 3 warm-ups), {flops / 1e12:.3f} TFLOP "
+          f"{reps} steps after 3 warm-ups), {flops / 1e12:.3f} TFLOP "
           f"per step (FlopCounterMode) = {share:.1%} of the float32 peak "
           f"with deterministic on, {share * step_ms / free_ms:.1%} off; "
           f"{card}")
@@ -2401,35 +2575,33 @@ def audio_run(dev, root):
     return run_launches + pre_launches
 
 
-def phase_audio(dev, card):
-    """Phase 10 (module docstring). Returns the CQT kernel launches of
-    its main path (the run on AudioCorpus and the precompute CLI) and the
-    numbers PERF.md keeps."""
-    import tempfile
-
+def phase_audio(dev, card, root):
+    """Phase 10 (module docstring), its corpus and the precompute CLI's
+    output (``root/features``, which phase 13 reads) under ``root``.
+    Returns the CQT kernel launches of its main path (the run on
+    AudioCorpus and the precompute CLI) and the numbers PERF.md keeps."""
     from multipitch_architectures_tpu_torch.ops.cqt_octave import cqt_octaves
     from multipitch_architectures_tpu_torch.ops.int8_gemm import (
         int8_conv2d_dequant)
 
     out = {}
-    with tempfile.TemporaryDirectory() as root:
-        t0 = time.perf_counter()
-        extras = make_corpus(root, dev)
-        print(f"[audio] corpus written in {time.perf_counter() - t0:.1f} s:"
-              f" {len(CORPUS_NAMES)} x {CORPUS_SECONDS:.0f}-s 44.1-kHz "
-              f"stereo int16 WAVs with MusicNet csvs, and {len(extras)} "
-              f"files of {EXTRA_SECONDS:.0f} s in other formats")
-        out["worst_file_rel"] = audio_card_vs_cpu(dev, root, extras)
-        out.update(audio_long(dev, card))
-        out.update(audio_split(dev, root, card))
-        # the main path: the counts from 0 just before it, read just after
-        int8_conv2d_dequant.launches = cqt_octaves.launches = 0
-        launches = audio_run(dev, root)
-        if (cqt_octaves.launches != launches
-                or int8_conv2d_dequant.launches):
-            raise AssertionError(f"audio: {cqt_octaves.launches} CQT "
-                                 f"launches counted, {launches} by file; "
-                                 f"{int8_conv2d_dequant.launches} int8 GEMM")
+    t0 = time.perf_counter()
+    extras = make_corpus(root, dev)
+    print(f"[audio] corpus written in {time.perf_counter() - t0:.1f} s:"
+          f" {len(CORPUS_NAMES)} x {CORPUS_SECONDS:.0f}-s 44.1-kHz "
+          f"stereo int16 WAVs with MusicNet csvs, and {len(extras)} "
+          f"files of {EXTRA_SECONDS:.0f} s in other formats")
+    out["worst_file_rel"] = audio_card_vs_cpu(dev, root, extras)
+    out.update(audio_long(dev, card))
+    out.update(audio_split(dev, root, card))
+    # the main path: the counts from 0 just before it, read just after
+    int8_conv2d_dequant.launches = cqt_octaves.launches = 0
+    launches = audio_run(dev, root)
+    if (cqt_octaves.launches != launches
+            or int8_conv2d_dequant.launches):
+        raise AssertionError(f"audio: {cqt_octaves.launches} CQT "
+                             f"launches counted, {launches} by file; "
+                             f"{int8_conv2d_dequant.launches} int8 GEMM")
     return launches, out
 
 
@@ -2866,6 +3038,423 @@ def phase_serving2(dev, card, tmp):
 
 
 
+
+# -- the zoo-2 phase (12): the zoo's other 19 classes ------------------------
+
+def zoo2_model(name, **overrides):
+    """Phase 12's model of registry class ``name`` at its configuration
+    (``ZOO2``), with the weights that the JAX package's ``model.init``
+    draws, from a generator seeded ``SEED`` (the card and the CPU
+    processes build the same model); attention models in
+    ``cross_batch:GROUP`` groups. Returns (model, attention group or
+    None)."""
+    import inspect
+
+    import torch
+
+    from multipitch_architectures_tpu_torch.experiments import (
+        MODEL_REGISTRY, build_model)
+    from multipitch_architectures_tpu_torch.models import init_parameters_flax
+
+    kw, group = zoo2_kwargs(name), None
+    if "attn_mode" in inspect.signature(MODEL_REGISTRY[name]).parameters:
+        group = GROUP
+        kw["attn_mode"] = f"cross_batch:{GROUP}"
+    model = build_model(name, {**kw, **overrides})
+    init_parameters_flax(model, torch.Generator().manual_seed(SEED))
+    return model, group
+
+
+def zoo2_cpu_forwards(path):
+    """The CPU side of phase 12's card-vs-CPU forwards, in a process of its
+    own with one thread: each class's eval forward of ``zoo_windows()``
+    and its freq-pool choices, written to ``path``."""
+    import torch
+
+    torch.set_num_threads(1)
+    x, out = zoo_windows(), {}
+    for name, _, _ in ZOO2:
+        model = zoo2_model(name)[0].eval()
+        pools = []
+        with torch.no_grad(), freq_pools(pools, replay=False):
+            y = model(x)
+        out[name] = {"y": list(y) if isinstance(y, tuple) else [y],
+                     "pools": pools}
+    torch.save(out, path)
+
+
+def zoo2_out_shape(name, t):
+    """What ``predict_framewise`` gives for ``t`` frames: 72 pitches, 73
+    with the bottom stack's activity row, the log-softmax CNNs'
+    ``n_ch_out`` channels of 72 (73 with the blank bin) flattened per
+    frame as the JAX package's ``predict_framewise`` reshapes them."""
+    kw = zoo2_kwargs(name)
+    bins = 73 if name in ("freq_u_net_bottomstack",
+                          "basic_cnn_segm_blank_logsoftmax") else 72
+    return (t, kw.get("n_ch_out", 1) * bins)
+
+
+def zoo2_serve(dev, card, name, batch, cpu):
+    """One class of phase 12: its configuration and parameter count, a
+    warm-up request and a ``ZOO2_SECONDS`` request through ``hcqt`` and
+    ``predict_framewise``, one K1 launch each, (T, bins) finite (within
+    [0, 1] but for the log-softmax CNNs, which give log-probabilities);
+    then ``ZOO_CHECK_WINDOWS`` windows card vs the CPU process (atol
+    ``MODEL_TOL``, the polyphony head's output included), the CPU's
+    freq-pool choices replayed where they are near-ties. Returns the
+    K1 launches of its requests."""
+    import torch
+
+    from multipitch_architectures_tpu_torch.dsp import hcqt
+    from multipitch_architectures_tpu_torch.eval import predict_framewise
+    from multipitch_architectures_tpu_torch.ops.cqt_octave import cqt_octaves
+
+    model, group = zoo2_model(name)
+    n_params = sum(p.numel() for p in model.parameters())
+    model.to(dev).eval()
+    aux = "polyphony" in name
+
+    def serve(y):
+        t0 = time.perf_counter()
+        f = hcqt(y, device=dev, **HCQT_KW)[0]
+        out = predict_framewise(model, f, batch_size=batch, group=group,
+                                return_aux=aux)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    before = cqt_octaves.launches
+    serve(audio(REQUEST_SECONDS[-1], SEED + 99))        # warm-up request
+    torch.cuda.reset_peak_memory_stats(dev)
+    out, wall = serve(audio(ZOO2_SECONDS, SEED + 7))
+    peak = torch.cuda.max_memory_allocated(dev)
+    launches = cqt_octaves.launches - before
+    pred, poly = out if aux else (out, None)
+    t = frames(ZOO2_SECONDS)
+    log_probs = "logsoftmax" in name
+    ok = (tuple(pred.shape) == zoo2_out_shape(name, t)
+          and bool(torch.isfinite(pred).all())
+          and (log_probs or 0.0 <= float(pred.min()) <= float(pred.max())
+               <= 1.0)
+          and (not log_probs or float(pred.max()) <= 0.0))
+    if aux:
+        ok = ok and poly.shape[0] == t and bool(torch.isfinite(poly).all())
+    if not ok or launches != 2:
+        raise AssertionError(f"{name}: output {tuple(pred.shape)} in "
+                             f"[{float(pred.min())}, {float(pred.max())}], "
+                             f"aux {None if poly is None else poly.shape}, "
+                             f"{launches} K1 launches in 2 requests")
+    cfg = ", ".join(f"{k}={v}" for k, v in zoo2_kwargs(name).items())
+    print(f"[zoo-2] {name} ({cfg}): {n_params:,} parameters; "
+          f"{ZOO2_SECONDS} s -> {tuple(pred.shape)} in "
+          f"[{float(pred.min()):.4f}, {float(pred.max()):.4f}]"
+          + (f", polyphony {tuple(poly.shape)} finite" if aux else "")
+          + f" (batch {batch}" + (f", cross_batch:{group}" if group else "")
+          + f"): wall {wall * 1e3:.1f} ms, {ZOO2_SECONDS / wall:.2f}x real "
+          f"time, peak device memory {peak / 2**30:.2f} GiB; 1 K1 launch "
+          f"per request; {card}")
+
+    with torch.no_grad(), freq_pools(cpu["pools"], replay=True) as fp:
+        got = model(zoo_windows().to(dev))
+    got = list(got) if isinstance(got, tuple) else [got]
+    gaps = [float((g.cpu() - w).abs().max()) for g, w in zip(got, cpu["y"])]
+    if len(got) != len(cpu["y"]) or not max(gaps) < MODEL_TOL:
+        raise AssertionError(f"{name} card vs CPU: max abs gaps {gaps}")
+    print(f"[zoo-2] {name} {ZOO_CHECK_WINDOWS} windows, card vs CPU (one "
+          f"thread): max abs gap " + ", ".join(f"{g:.3e}" for g in gaps)
+          + f" (< {MODEL_TOL:g}; {fp.flips} freq-pool near-ties replayed)")
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def zoo2_int8(dev, card):
+    """Phase 12's int8 request: ``ZOO2_INT8`` through
+    ``predict_framewise_int8(batch_size=BATCH, group=GROUP, cal_batches=1)``
+    on a ``ZOO2_INT8_SECONDS`` request, beside the float32 protocol: the
+    calibration span equal to it (1e-6), the fused K2/K3 entry launched
+    once per quantized conv per int8 batch, the worst-of-25 drift.
+    Returns (K1 launches, K2/K3 launches)."""
+    import torch
+
+    from multipitch_architectures_tpu_torch.dsp import hcqt
+    from multipitch_architectures_tpu_torch.eval import (
+        eligible_convs, measure_drift, predict_framewise,
+        predict_framewise_int8)
+    from multipitch_architectures_tpu_torch.ops.cqt_octave import cqt_octaves
+    from multipitch_architectures_tpu_torch.ops.int8_gemm import (
+        int8_conv2d_dequant)
+
+    model, group = zoo2_model(ZOO2_INT8)
+    model.to(dev).eval()
+    n_convs = len(eligible_convs(model))
+    before = cqt_octaves.launches
+    f = hcqt(audio(ZOO2_INT8_SECONDS, SEED + 12), device=dev, **HCQT_KW)[0]
+    cqt = cqt_octaves.launches - before
+    want = predict_framewise(model, f, batch_size=BATCH, group=group)
+    predict_framewise_int8(model, f, batch_size=BATCH, group=group,
+                           cal_batches=1)                # warm-up
+    int8_conv2d_dequant.launches = 0
+    got, wall, peak = timed_request(lambda: predict_framewise_int8(
+        model, f, batch_size=BATCH, group=group, cal_batches=1))
+    launches = int8_conv2d_dequant.launches
+    t = f.shape[1]
+    batches = len(int8_batch_sizes(t, BATCH, group, 1))
+    span = min(BATCH, t)
+    cal_gap = float((got[:span] - want[:span]).abs().max())
+    drift, _ = measure_drift(want.cpu().numpy(), got.cpu().numpy())
+    print(f"[zoo-2] int8 {ZOO2_INT8} {ZOO2_INT8_SECONDS} s ({t} frames): "
+          f"{n_convs} quantized convs x {batches} int8 batches = {launches} "
+          f"K2/K3 launches; calibration span against the float32 protocol "
+          f"{cal_gap:.3e} (<= {DEQUANT_TOL:g}); worst-of-25 drift against "
+          f"float32 {max(drift.values()):.3e}; wall {wall * 1e3:.1f} ms, "
+          f"peak {peak:.0f} MiB; {card}")
+    if launches != n_convs * batches or not cal_gap <= DEQUANT_TOL or \
+            cqt != 1:
+        raise AssertionError(f"zoo-2 int8: {launches} K2/K3 launches for "
+                             f"{n_convs} convs x {batches} batches, "
+                             f"calibration span gap {cal_gap}, {cqt} K1")
+    del model
+    torch.cuda.empty_cache()
+    return cqt, launches
+
+
+def phase_zoo2(dev, card, procs):
+    """Phase 12 (module docstring). Returns (K1 launches, K2/K3 launches)
+    of its main path: the 19 classes' requests and the int8 request."""
+    from multipitch_architectures_tpu_torch.ops.cqt_octave import cqt_octaves
+    from multipitch_architectures_tpu_torch.ops.int8_gemm import (
+        int8_conv2d_dequant)
+
+    cpu = zoo_cpu_result(procs, "zoo2_forwards")
+    int8_conv2d_dequant.launches = cqt_octaves.launches = 0
+    k1 = sum(zoo2_serve(dev, card, name, batch, cpu[name])
+             for name, _, batch in ZOO2)
+    if cqt_octaves.launches != k1 or int8_conv2d_dequant.launches:
+        raise AssertionError(f"zoo-2: {cqt_octaves.launches} K1 launches "
+                             f"counted, {k1} by request; "
+                             f"{int8_conv2d_dequant.launches} K2/K3")
+    int8_k1, k2 = zoo2_int8(dev, card)
+    for name in ZOO2_TRAIN:
+        zoo_step(dev, card, name, zoo_cpu_result(procs, "zoo2_steps",
+                                                 part=name), reps=5)
+    return k1 + int8_k1, k2
+
+
+
+# -- the loaders phase (13): the native window loader and the datasets -------
+
+LOADER_STRIDE = 5          # ≈ 500 windows per 60-s file of phase 10
+LOADER_INDICES = 1000
+LOADER_STEPS = 20
+DATASET_STEPS = 3
+DATASET_AUG = {"compression": 10.0, "aug:transpsemitones": 5,
+               "aug:randomeq": 20, "aug:noisestd": 1e-4, "aug:tuning": True,
+               "aug:smooth_len": 4, "aug:smooth_win": "hann", "seed": SEED}
+
+
+def loader_pairs(features):
+    """(hcqt, pitch) file pairs of the precompute CLI's output: the HCQT
+    (216, T, 6) and the roll (128, T) of each recording."""
+    names = sorted(os.listdir(os.path.join(features, "hcqt")))
+    return [(os.path.join(features, "hcqt", n),
+             os.path.join(features, "pitch", n)) for n in names]
+
+
+def windows_per_s(batches, batch_size):
+    """(windows per second, batches) of one pass over ``batches``, the
+    card synchronised at the end."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n = sum(1 for _ in batches)
+    torch.cuda.synchronize()
+    return n * batch_size / (time.perf_counter() - t0), n
+
+
+def fed_fit(dev, cfg, batches_fn, steps):
+    """``Trainer.fit`` of exp180d (``deterministic`` off) for one epoch of
+    ``steps`` batches from ``batches_fn``, after one warm-up step: (ms per
+    step by the host clock, the card synchronised; the epoch's loss; the
+    trainer)."""
+    import dataclasses
+
+    import torch
+
+    from multipitch_architectures_tpu_torch.train import Trainer
+
+    tc = dataclasses.replace(cfg.train_config, max_epochs=1,
+                             max_train_batches=steps, scheduler=None,
+                             early_stopping=False, deterministic=False)
+    trainer = Trainer(cfg.build_model(), tc, device=dev).init()
+    trainer.train_step(*next(iter(batches_fn(0, 0))))       # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hist = trainer.fit(batches_fn)
+    torch.cuda.synchronize()
+    return ((time.perf_counter() - t0) * 1e3 / steps,
+            hist["train_loss"][-1], trainer)
+
+
+def loader_check(pairs):
+    """Phase 13a: ``fill`` of ``LOADER_INDICES`` seeded indices equal to the
+    port's ``gather_windows`` on the same files, bit for bit."""
+    import torch
+
+    from multipitch_architectures_tpu_torch.data import gather_windows
+    from multipitch_architectures_tpu_torch.io import NativeWindowLoader
+
+    loader = NativeWindowLoader(pairs, 75, LOADER_STRIDE)
+    idx = np.random.RandomState(SEED).randint(0, len(loader), LOADER_INDICES)
+    x, y = loader.fill(idx)
+    files = [(torch.from_numpy(np.ascontiguousarray(
+        np.load(h).transpose(2, 1, 0))), np.load(a)) for h, a in pairs]
+    counts = np.cumsum([0] + [(f.shape[1] - 75) // LOADER_STRIDE
+                              for f, _ in files])
+    bad = 0
+    for k, i in enumerate(idx):
+        f = int(np.searchsorted(counts, i, side="right")) - 1
+        inputs, roll = files[f]
+        center = (i - counts[f]) * LOADER_STRIDE + 37
+        want = gather_windows(inputs, [center], 75)[0].numpy()
+        bad += not (np.array_equal(x[k], want) and np.array_equal(
+            y[k], roll[24:96, center].astype(np.float32)))
+    if bad or counts[-1] != len(loader):
+        raise AssertionError(f"native loader: {bad} of {len(idx)} windows "
+                             f"differ from gather_windows; {len(loader)} "
+                             f"windows, {counts[-1]} by file")
+    print(f"[loaders] native loader over the precompute CLI's output "
+          f"({len(pairs)} files, (216, T, 6) / (128, T), stride "
+          f"{LOADER_STRIDE}: {len(loader)} windows): {len(idx)} seeded "
+          f"windows and targets equal gather_windows bit for bit")
+    return loader, files
+
+
+def loader_timing(dev, card, loader, files, train=None):
+    """Phase 13b-c: ``trainer_batches`` alone against ``TrainPipeline`` on
+    the same windows; exp180d fed by each through ``Trainer.fit``; a
+    profile of 3 loader-fed steps, beside phase 8e's when ``train``
+    holds it."""
+    from multipitch_architectures_tpu_torch.data import FileSpec, TrainPipeline
+    from multipitch_architectures_tpu_torch.experiments import load_experiment
+    from multipitch_architectures_tpu_torch.io import trainer_batches
+
+    bs = TRAIN_BATCH
+    pipeline = TrainPipeline([FileSpec(x.numpy(), r.T) for x, r in files],
+                             stride=LOADER_STRIDE, device=dev)
+    if len(pipeline) != len(loader):
+        raise AssertionError(f"{len(pipeline)} pipeline windows, "
+                             f"{len(loader)} loader windows")
+    windows_per_s(trainer_batches(loader, bs, device=dev), bs)   # warm-up
+    rates = {}
+    for label, fn in (
+            ("trainer_batches", lambda: trainer_batches(loader, bs,
+                                                        seed=1, device=dev)),
+            ("TrainPipeline", lambda: pipeline.batches(1, bs)),
+            ("trainer_batches again", lambda: trainer_batches(
+                loader, bs, seed=2, device=dev))):
+        rates[label], n = windows_per_s(fn(), bs)
+    print(f"[loaders] one epoch ({n} batches of {bs}) alone, the card "
+          f"synchronised at the end: " + "; ".join(
+              f"{k} {v:,.0f} windows/s" for k, v in rates.items())
+          + f" (the pipeline holds the recordings on the card and applies "
+          f"the compression only here); {card}")
+
+    cfg = load_experiment(TRAIN_EXPERIMENT)
+    fed = {}
+    for label, fn in (
+            ("native loader", lambda epoch, seed: trainer_batches(
+                loader, bs, seed=seed, device=dev)),
+            ("TrainPipeline", lambda epoch, seed: pipeline.batches(seed,
+                                                                   bs))):
+        fed[label] = fed_fit(dev, cfg, fn, LOADER_STEPS)
+    trainer = fed["native loader"][2]
+
+    def three_steps():
+        for i, (x, y) in enumerate(trainer_batches(loader, bs, seed=5,
+                                                   device=dev)):
+            trainer.train_step(x, y)
+            if i == 2:
+                break
+
+    idle, wall, top = device_profile(three_steps, top=4)
+    idle_txt = "not measured (no device kernels in the trace)" \
+        if idle is None else f"{idle:.2%}"
+    losses = [v[1] for v in fed.values()]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"loader-fed training: losses {losses}")
+    print(f"[loaders] exp180d Trainer.fit, {LOADER_STEPS} steps at batch "
+          f"{bs} (deterministic off, TF32 off): " + "; ".join(
+              f"fed by the {k} {v[0]:.2f} ms per step (loss {v[1]:.4f})"
+              for k, v in fed.items())
+          + f"; 3 loader-fed steps profiled: wall {wall * 1e3:.1f} ms, "
+          f"device idle {idle_txt}; top kernels: "
+          + "; ".join(f"{k} {ms:.2f} ms" for k, ms in top) + f"; {card}")
+    if train and "free_ms" in train:
+        idle8 = "not measured" if train["idle"] is None else \
+            f"{train['idle']:.2%}"
+        print(f"[loaders] beside phase 8e's registry step (prebuilt "
+              f"batches, augmentation on): {train['free_ms']:.2f} ms with "
+              f"deterministic off; 3 pipeline-fed steps (deterministic on) "
+              f"idle {idle8}")
+    return rates, fed, idle
+
+
+def dataset_steps(dev, card, files):
+    """Phase 13d: ``dataset_context`` with every ``aug:*`` key through a
+    ``DataLoader(pin_memory=True)`` into ``DATASET_STEPS`` exp180d steps;
+    the first batch's items equal the same items built again on the
+    CPU."""
+    import torch
+
+    from multipitch_architectures_tpu_torch.data import dataset_context
+    from multipitch_architectures_tpu_torch.experiments import load_experiment
+    from multipitch_architectures_tpu_torch.train import Trainer
+
+    inputs, roll = files[0]
+    targets = roll[24:96].T
+    params = dict(DATASET_AUG, context=75, stride=LOADER_STRIDE)
+    ds = dataset_context(inputs, targets, params)
+    batches = torch.utils.data.DataLoader(ds, batch_size=TRAIN_BATCH,
+                                          pin_memory=True)
+    again = dataset_context(inputs, targets, params)
+    cfg = load_experiment(TRAIN_EXPERIMENT)
+    trainer = Trainer(cfg.build_model(), cfg.train_config, device=dev).init()
+    losses = []
+    for i, (x, y) in enumerate(batches):
+        if i == 0:
+            items = [again[j] for j in range(TRAIN_BATCH)]
+            same = all(torch.equal(x[j], a) and torch.equal(y[j], b)
+                       for j, (a, b) in enumerate(items))
+            if not (same and x.is_pinned()):
+                raise AssertionError(f"dataset_context: first batch equal "
+                                     f"to the CPU's items {same}, pinned "
+                                     f"{x.is_pinned()}")
+        losses.append(float(trainer.train_step(
+            x.to(dev, non_blocking=True), y.to(dev, non_blocking=True))))
+        if i + 1 == DATASET_STEPS:
+            break
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"dataset-fed steps: losses {losses}")
+    print(f"[loaders] dataset_context (every aug:* key, seed {SEED}; "
+          f"{len(ds)} items) through DataLoader(pin_memory=True) into "
+          f"{DATASET_STEPS} exp180d steps at batch {TRAIN_BATCH}: losses "
+          + ", ".join(f"{v:.4f}" for v in losses) + "; the first batch's "
+          f"items equal the same items built on the CPU, pinned; {card}")
+
+
+def phase_loaders(dev, card, features, train=None):
+    """Phase 13 (module docstring), on the precompute CLI's output of
+    phase 10's corpus under ``features``; ``train`` is phase 8's result,
+    whose registry step (8e) is printed beside the loader-fed one.
+    Launches no kernel."""
+    pairs = loader_pairs(features)
+    loader, files = loader_check(pairs)
+    out = loader_timing(dev, card, loader, files, train)
+    dataset_steps(dev, card, files)
+    return out
+
+
 def main():
     import tempfile
 
@@ -2915,7 +3504,7 @@ def main():
 
 
 def run_phases(dev, card, procs, lap, tmp):
-    """Phases 2-11; returns the kernels' launches on the main paths and
+    """Phases 2-13; returns the kernels' launches on the main paths and
     their measurements."""
     phase_build()
     lap("device and build")
@@ -2937,7 +3526,7 @@ def run_phases(dev, card, procs, lap, tmp):
         int8_conv2d_dequant)
 
     int8_conv2d_dequant.launches = cqt_octaves.launches = 0
-    phase_train(dev, card)
+    train = phase_train(dev, card)
     print(f"[train] the training path launched the CQT kernel "
           f"{cqt_octaves.launches} times and the int8 GEMM "
           f"{int8_conv2d_dequant.launches} times: it has no hand-written "
@@ -2956,7 +3545,8 @@ def run_phases(dev, card, procs, lap, tmp):
           f"SAUnet's)")
     lap("zoo")
 
-    audio_launches, _ = phase_audio(dev, card)
+    audio_root = os.path.join(tmp, "audio")
+    audio_launches, _ = phase_audio(dev, card, audio_root)
     print(f"[audio] the audio path's run and precompute launched the CQT "
           f"kernel {audio_launches} times (once per file read) and the int8 "
           f"GEMM 0 times")
@@ -2967,8 +3557,25 @@ def run_phases(dev, card, procs, lap, tmp):
           f"launched the CQT kernel {serving2_cqt} times (once per HCQT) "
           f"and the int8 GEMM {serving2_gemm} times")
     lap("serving-2")
-    return (cqt_launches + zoo_launches + audio_launches + serving2_cqt, cqt,
-            gemm_launches + serving2_gemm, gemm)
+
+    zoo2_cqt, zoo2_gemm = phase_zoo2(dev, card, procs)
+    print(f"[zoo-2] the 19 classes' {2 * len(ZOO2)} requests and the int8 "
+          f"request launched the CQT kernel {zoo2_cqt} times (once per "
+          f"request) and the int8 GEMM {zoo2_gemm} times (once per "
+          f"quantized conv per int8 batch)")
+    lap("zoo-2")
+
+    int8_conv2d_dequant.launches = cqt_octaves.launches = 0
+    phase_loaders(dev, card, os.path.join(audio_root, "features"), train)
+    if cqt_octaves.launches or int8_conv2d_dequant.launches:
+        raise AssertionError(f"loaders: {cqt_octaves.launches} CQT and "
+                             f"{int8_conv2d_dequant.launches} int8 GEMM "
+                             f"launches")
+    print("[loaders] the loader paths launched no kernel (their work is the "
+          "host's and the copies')")
+    lap("loaders")
+    return (cqt_launches + zoo_launches + audio_launches + serving2_cqt
+            + zoo2_cqt, cqt, gemm_launches + serving2_gemm + zoo2_gemm, gemm)
 
 
 if __name__ == "__main__":

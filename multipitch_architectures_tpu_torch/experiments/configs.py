@@ -29,11 +29,7 @@ from dataclasses import dataclass, field
 from typing import Dict, List
 
 from ..data.augment import AugmentConfig
-from ..models import (BasicCnnSegmSigmoid, DeepCnnSegmSigmoid,
-                      SimpleUNetDoubleSelfAttn,
-                      SimpleUNetDoubleSelfAttnTwoLayers,
-                      SimpleUNetLargeKernels,
-                      SimpleUNetPolyphonyClassifSoftmax, UNetBlstmVarLayers)
+from .. import models as M
 from ..train.trainer import TrainConfig
 
 REGISTRY_PATH = os.path.join(
@@ -41,18 +37,40 @@ REGISTRY_PATH = os.path.join(
         __file__)))),
     "multipitch_architectures_tpu", "experiments", "registry.json")
 
-# reference class name -> this package's module: every class that a
-# registry entry uses
+# reference class name -> this package's module: every class of the zoo
 MODEL_REGISTRY = {
-    "basic_cnn_segm_sigmoid": BasicCnnSegmSigmoid,
-    "deep_cnn_segm_sigmoid": DeepCnnSegmSigmoid,
-    "simple_u_net_largekernels": SimpleUNetLargeKernels,
-    "simple_u_net_doubleselfattn": SimpleUNetDoubleSelfAttn,
+    "basic_cnn": M.BasicCnn,
+    "basic_cnn_pool": M.BasicCnnPool,
+    "basic_cnn_segm_sigmoid": M.BasicCnnSegmSigmoid,
+    "basic_cnn_segm_logsoftmax": M.BasicCnnSegmLogSoftmax,
+    "basic_cnn_segm_blank_logsoftmax": M.BasicCnnSegmBlankLogSoftmax,
+    "deep_cnn_segm_sigmoid": M.DeepCnnSegmSigmoid,
+    "simple_u_net": M.SimpleUNet,
+    "simple_u_net_largekernels": M.SimpleUNetLargeKernels,
+    "simple_u_net_selfattn": M.SimpleUNetSelfAttn,
+    "simple_u_net_doubleselfattn": M.SimpleUNetDoubleSelfAttn,
+    "simple_u_net_sixselfattn": M.SimpleUNetSixSelfAttn,
     "simple_u_net_doubleselfattn_twolayers":
-        SimpleUNetDoubleSelfAttnTwoLayers,
-    "u_net_blstm_varlayers": UNetBlstmVarLayers,
+        M.SimpleUNetDoubleSelfAttnTwoLayers,
+    "simple_u_net_doubleselfattn_alllayers":
+        M.SimpleUNetDoubleSelfAttnAllLayers,
+    "simple_u_net_doubleselfattn_varlayers":
+        M.SimpleUNetDoubleSelfAttnVarLayers,
+    "u_net_blstm_varlayers": M.UNetBlstmVarLayers,
+    "u_net_temporal_selfattn_varlayers": M.UNetTemporalSelfAttnVarLayers,
+    "u_net_temporal_blstm_varlayers": M.UNetTemporalBlstmVarLayers,
+    "simple_u_net_doubleselfattn_transenc": M.SimpleUNetDoubleSelfAttnTransEnc,
+    "freq_u_net": M.FreqUNet,
+    "freq_u_net_bottomstack": M.FreqUNetBottomStack,
+    "freq_u_net_selfattn": M.FreqUNetSelfAttn,
+    "freq_u_net_doubleselfattn": M.FreqUNetDoubleSelfAttn,
+    "simple_u_net_doubleselfattn_polyphony":
+        M.SimpleUNetDoubleSelfAttnPolyphony,
+    "simple_u_net_doubleselfattn_polyphony_classif":
+        M.SimpleUNetDoubleSelfAttnPolyphonyClassif,
+    "simple_u_net_polyphony_classif": M.SimpleUNetPolyphonyClassif,
     "simple_u_net_polyphony_classif_softmax":
-        SimpleUNetPolyphonyClassifSoftmax,
+        M.SimpleUNetPolyphonyClassifSoftmax,
 }
 
 # Exp4 big-mix per-corpus train/val strides
@@ -71,8 +89,8 @@ def build_model(model_class: str, model_kwargs: dict, **overrides):
     class does not take, such as ``n_ch_out``, are dropped; lists become
     tuples) and ``overrides`` (e.g. ``attn_mode='cross_batch:50'``)."""
     if model_class not in MODEL_REGISTRY:
-        raise KeyError(f"model class {model_class!r} is not ported yet; "
-                       f"ported: {sorted(MODEL_REGISTRY)}")
+        raise KeyError(f"unknown model class {model_class!r}; "
+                       f"known: {sorted(MODEL_REGISTRY)}")
     cls = MODEL_REGISTRY[model_class]
     accepted = inspect.signature(cls).parameters
     kwargs = {k: (tuple(v) if isinstance(v, list) else v)

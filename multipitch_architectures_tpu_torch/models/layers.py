@@ -19,9 +19,34 @@ from ..ops.attention import (TorchMultiheadAttention,
 from ..ops.lstm import TorchLSTM
 
 
+def leaky_relu(x, negative_slope):
+    return F.leaky_relu(x, negative_slope)
+
+
 def max_pool2d(x, kernel, stride=None, padding=(0, 0)):
     """torch ``nn.MaxPool2d`` semantics: -inf padding, floor output size."""
     return F.max_pool2d(x, kernel, stride or kernel, padding)
+
+
+def max_pool_with_indices_freq(x, k: int):
+    """Max-pool NCHW ``x`` along frequency by the exact factor ``k``:
+    ``(pooled, idx)``, ``idx`` the position of each window's first maximum
+    within its ``k`` bins (JAX ``models/layers.py:180``), not the
+    flattened-plane index of ``F.max_pool2d(return_indices=True)``. The
+    freq U-Nets' factors divide 216 exactly."""
+    b, c, t, f = x.shape
+    if f % k:
+        raise ValueError(f"{f} frequency bins do not pool by {k}")
+    xr = x.reshape(b, c, t, f // k, k)
+    return xr.amax(-1), xr.argmax(-1)
+
+
+def max_unpool_freq(x, idx, k: int):
+    """Inverse of :func:`max_pool_with_indices_freq`: each value back at
+    its window's index, zeros elsewhere."""
+    b, c, t, f = x.shape
+    onehot = F.one_hot(idx, k).to(x.dtype)             # (B, C, T, F, k)
+    return (x[..., None] * onehot).reshape(b, c, t, f * k)
 
 
 class HarmonicLayerNorm(nn.LayerNorm):
@@ -61,18 +86,27 @@ class DoubleConv(nn.Module):
     ``double_conv`` Sequential. ``convdrop=None`` gives the plain layout
     (convs at indices 0 and 3); a number, 0.0 included, inserts
     Dropout(p=convdrop) after each stage (convs at 0 and 4).
-    ``residual`` adds a 1x1-conv shortcut of the input, ``resize``."""
+    ``alt_order`` is the pre-activation order ELU-BN-Dropout-Conv, twice
+    (BNs at 1 and 5, convs at 3 and 7; an ``nn.Identity`` holds the
+    dropout's place when ``convdrop`` is None). ``residual`` adds a
+    1x1-conv shortcut of the input, ``resize``."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  mid_channels: Optional[int] = None, kernel=(3, 3),
                  padding=(1, 1), convdrop: Optional[float] = 0.0,
-                 residual: bool = False):
+                 residual: bool = False, alt_order: bool = False):
         super().__init__()
         mid = mid_channels or out_channels
         layers = []
         for c_in, c_out in ((in_channels, mid), (mid, out_channels)):
-            layers += [nn.Conv2d(c_in, c_out, kernel, padding=padding),
-                       nn.BatchNorm2d(c_out, eps=1e-5, momentum=0.1),
+            conv = nn.Conv2d(c_in, c_out, kernel, padding=padding)
+            if alt_order:
+                layers += [nn.ELU(), nn.BatchNorm2d(c_in, eps=1e-5,
+                                                    momentum=0.1),
+                           nn.Identity() if convdrop is None
+                           else nn.Dropout(convdrop), conv]
+                continue
+            layers += [conv, nn.BatchNorm2d(c_out, eps=1e-5, momentum=0.1),
                        nn.ReLU()]
             if convdrop is not None:
                 layers.append(nn.Dropout(convdrop))
@@ -83,6 +117,17 @@ class DoubleConv(nn.Module):
     def forward(self, x):
         h = self.double_conv(x)
         return h if self.resize is None else self.resize(x) + h
+
+
+class SingleConvSELU(nn.Sequential):
+    """Conv2d -> SELU, the working block that the reference's broken
+    ``single_conv`` / ``single_conv_SELU`` call sites intend (JAX
+    ``models/layers.py:156``); its conv is ``<name>.0``."""
+
+    def __init__(self, in_channels: int, features: int, kernel=(3, 3),
+                 padding=(1, 1)):
+        super().__init__(nn.Conv2d(in_channels, features, kernel,
+                                   padding=padding), nn.SELU())
 
 
 class TransformerEncLayer(nn.Module):
@@ -121,6 +166,11 @@ class TransformerEncLayer(nn.Module):
     def forward(self, x):
         b, e, h, w = x.shape
         tokens = x.flatten(2).transpose(1, 2)             # (B, H·W, E)
+        return self._encode(tokens).transpose(1, 2).reshape(b, e, h, w)
+
+    def _encode(self, tokens):
+        """The encoder on ``(B, L, E)`` tokens."""
+        e = tokens.shape[2]
         if self.pos_encoding is not None:
             pe = self.pe
             if self.pos_encoding == "sinusoidal" and \
@@ -133,8 +183,33 @@ class TransformerEncLayer(nn.Module):
                              self.v_linear(tokens))
         attn_out = self.dropout(self.o_linear(attn_out))
         x1 = self.layernorm1(tokens + attn_out)
-        x2 = self.layernorm2(x1 + self.dropout(self.mlp(x1)))
-        return x2.transpose(1, 2).reshape(b, e, h, w)
+        return self.layernorm2(x1 + self.dropout(self.mlp(x1)))
+
+
+class TransformerTemporalEncLayer(TransformerEncLayer):
+    """Attention over time only (unet_cnns.py:162-217): token ``t`` holds
+    the map's (channel x freq) features flattened channel-major, ``(B, C,
+    T, F)`` -> ``(B, T, C·F)``, and the output is split back the same way.
+    ``C·F`` must be ``embed_dim``. The positional table has ``max_len``
+    (174) rows, as in the JAX package, and a longer map raises: it is not
+    extended."""
+
+    def __init__(self, embed_dim: int, num_heads: int = 8, mlp_dim: int = 512,
+                 p_dropout: float = 0.2, pos_encoding: Optional[str] = None,
+                 attn_mode: str = "cross_batch", max_len: int = 174):
+        super().__init__(embed_dim, num_heads, mlp_dim, p_dropout,
+                         pos_encoding, attn_mode, max_len)
+
+    def forward(self, x):
+        b, c, t, f = x.shape
+        if c * f != self.pe.shape[1]:
+            raise ValueError(f"{c} channels x {f} bins is not the embedding "
+                             f"width {self.pe.shape[1]}")
+        if self.pos_encoding is not None and t > self.pe.shape[0]:
+            raise ValueError(f"{t} time steps exceed the positional table's "
+                             f"{self.pe.shape[0]} rows")
+        tokens = x.permute(0, 2, 1, 3).reshape(b, t, c * f)
+        return self._encode(tokens).reshape(b, t, c, f).permute(0, 2, 1, 3)
 
 
 class BLSTMTemporalEncLayer(nn.Module):
@@ -156,6 +231,21 @@ class BLSTMTemporalEncLayer(nn.Module):
         b, c, t, f = x.shape
         out = self.blstm(x.permute(0, 2, 1, 3).reshape(b, t, c * f))
         return out.reshape(b, t, -1, f).permute(0, 2, 1, 3)
+
+
+def polyphony_head(in_channels: int, mid_channels: int, out_channels: int,
+                   a_lrelu: float = 0.3, p_dropout: float = 0.2,
+                   relu_out: bool = True):
+    """The degree-of-polyphony head ``convP`` (unet_cnns.py:2040-2047,
+    2311-2318): conv (2, 5) -> LeakyReLU -> max-pool (2, 5) stride (1, 2)
+    -> dropout -> conv (2, 3), all unpadded, then a ReLU unless
+    ``relu_out`` is false (raw logits). Convs at ``.0`` and ``.4``; on
+    the 4 x 13 bottleneck of a window it gives 1 x 1."""
+    layers = [nn.Conv2d(in_channels, mid_channels, (2, 5)),
+              nn.LeakyReLU(a_lrelu), nn.MaxPool2d((2, 5), (1, 2)),
+              nn.Dropout(p_dropout),
+              nn.Conv2d(mid_channels, out_channels, (2, 3))]
+    return nn.Sequential(*layers, *([nn.ReLU()] if relu_out else []))
 
 
 def pitch_head(in_channels: int, n_chan_layers: Sequence[int],
@@ -259,8 +349,9 @@ def init_parameters_flax(model: nn.Module, generator: torch.Generator):
       cut at ±2 of that std, and zero biases;
     - attention ``in_proj`` and ``out_proj``: xavier-uniform weights and
       zero biases (JAX ``ops/attention.py:76-83``);
-    - a learned positional encoding ``pe``: flax ``kaiming_uniform``
-      (JAX ``models/layers.py:232``);
+    - a learned positional encoding ``pe`` (of the spatial and the
+      temporal transformer layers): flax ``kaiming_uniform`` (JAX
+      ``models/layers.py:232, 270``);
     - LSTM weights and biases: U(±1/sqrt(H)) (JAX ``ops/lstm.py:52``);
     - norms: unit scale and zero shift; BatchNorm statistics (0, 1).
     """

@@ -23,6 +23,8 @@ import multipitch_architectures_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
+assert {pkg.__name__ + m for m in (".data.datasets", ".io.native_loader",
+                                    ".models.unets", ".models.cnns")} <= set(names)
 import chip_smoke
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
@@ -38,7 +40,7 @@ def test_port_imports_no_jax():
                        env={**os.environ, "PYTHONPATH": REPO})
     assert r.returncode == 0, r.stderr
     n_modules, loaded = r.stdout.split(" ", 1)
-    assert int(n_modules) >= 32
+    assert int(n_modules) >= 51
     assert loaded.strip() == "[]"
 
 

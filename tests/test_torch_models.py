@@ -217,8 +217,10 @@ def test_exp180e_builds_at_full_width_with_the_jax_geometry():
     assert all(torch.equal(a[k], b[k]) for k in a)
     assert not torch.equal(a["inc.double_conv.0.weight"],
                            c["inc.double_conv.0.weight"])
-    with pytest.raises(KeyError, match="not ported"):
-        build_model("freq_u_net", {})
+    # every class of the zoo builds; an unknown class raises
+    assert type(build_model("freq_u_net", {})).__name__ == "FreqUNet"
+    with pytest.raises(KeyError, match="unknown model class"):
+        build_model("no_such_model", {})
 
 
 def test_gather_windows_matches_jax_and_rejects_out_of_range():

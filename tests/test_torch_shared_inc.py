@@ -3,7 +3,8 @@ against the JAX package's ``predict_framewise_shared`` on the same
 weights (1e-4), against the port's own windowed protocol (2e-5, the JAX
 package's bound) with plain and grouped attention, the natural tail and
 residual down blocks, with the PUnet's aux head, and in the int8 mode
-against the JAX package's (5e-3, the bin-flip noise of two programs).
+against the JAX package's (5e-3, the bin-flip noise of two programs);
+what changes or lacks ``inc`` is refused as the JAX package refuses it.
 
 Small recordings keep the protocol's drain: batch 10 and group 5 give
 full batches, a grouped tail of full groups and a natural remainder as
@@ -154,6 +155,29 @@ def test_shared_inc_rejects_what_changes_inc():
         predict_framewise_shared(tmodels.SimpleUNetLargeKernels(**TINY)
                                  .eval(), torch.zeros(6, 10, 216),
                                  batch_size=10, group=3)
+
+
+def test_shared_inc_refuses_alt_order_and_freq_unets_as_jax_does():
+    """A SAUnet built with ``alt_order=True`` is refused with the JAX
+    package's error, word for word; a freq U-Net, which has no ``inc``,
+    is refused by both (the JAX package at its first dense pass, with a
+    ``KeyError``; the port when the forward is built)."""
+    kw = dict(TINY_ATTN, alt_order=True)
+    with pytest.raises(ValueError) as theirs:
+        jshared.SharedIncForward(ju.SimpleUNetDoubleSelfAttn(**kw))
+    with pytest.raises(ValueError) as ours:
+        SharedIncForward(tmodels.SimpleUNetDoubleSelfAttn(**kw).eval())
+    assert str(ours.value) == str(theirs.value)
+    assert "alt_order" in str(ours.value)
+
+    fkw = dict(n_chan_layers=(32, 8, 4, 2), n_bins_out=72, scalefac=2,
+               embed_dim=32, num_heads=8, mlp_dim=64)
+    jm, v, tm = _pair(ju.FreqUNetSelfAttn, tmodels.FreqUNetSelfAttn, fkw, 0)
+    xp = jnp.zeros((6, 80, 216))
+    with pytest.raises(KeyError, match="inc"):
+        jshared.SharedIncForward(jm).precompute(v, xp)
+    with pytest.raises(ValueError, match="FreqUNetSelfAttn has none"):
+        SharedIncForward(tm)
 
 
 def test_shared_inc_int8_matches_jax():
