@@ -11,9 +11,10 @@ path (WAV and note-event files to tuned, streamed HCQT features and
 pitch rolls, training from them and precomputing them), serving
 beyond the windowed protocol (shared ``inc``, exported artifacts in
 float32 and int8, percentile calibration, the PUnet's int8 aux head),
-the zoo's other 19 classes, and the native window loader and the
-reference-compatible datasets, in phases, and prints each phase's result
-on its own line:
+the zoo's other 19 classes, the native window loader and the
+reference-compatible datasets, and the device mesh (sharded training,
+serving and test phase), in phases, and prints each phase's result on
+its own line:
 
 1. device: requires CUDA, prints the card's name and power limit, and
    sets the float32 parity flags (no TF32);
@@ -215,7 +216,26 @@ on its own line:
       (device idle share);
    d. ``dataset_context`` with every ``aug:*`` key through a
       ``DataLoader(pin_memory=True)`` into 3 exp180d steps: the first
-      batch's items equal to the same items built on the CPU.
+      batch's items equal to the same items built on the CPU;
+14. parallel, on three meshes (``parallel.make_mesh``): the visible cards,
+   and two logical meshes of four shards on the card, ``data=4`` and
+   ``data=2 x model=2`` (tensor parallelism of the attention and MLPs):
+   a. one AdamW step of exp180d at full width (seeded flax-drawn weights,
+      dropout on, its generator seeded) at batch 24 and at the protocol's
+      25 (padded by the trainer to a multiple of the mesh's devices, 28,
+      with loss weight 0) on each mesh, against the one-device step on the
+      same rows and weights, in float32 and in float64: loss rel 1e-5 in
+      both, all gradients' relative L2 1e-3 in float64 (printed in
+      float32, whose gradients of exp180d are good to a few 1e-2);
+   b. the step at batch 24 timed on one device and on each mesh (a
+      one-card mesh is not timed), ``deterministic`` on and off;
+   c. a 10-s exp180e request (``cross_batch:50``, its HCQT on K1) through
+      ``predict_framewise_sharded`` on the ``data=4`` mesh at per-device
+      batches of 250 and 100, within 2e-5 of ``predict_framewise(
+      batch_size=250, group=50)``, one K1 launch per request, timed;
+   d. one ``run_experiment`` test phase of exp180d on the ``data=4`` mesh:
+      its dispatch sharded, every prediction within 2e-5 of the same run
+      on one device.
 
 Each path's kernel launch counts are reset just before its requests and
 read just after. Each phase's seconds are printed at the end. The line
@@ -3455,6 +3475,252 @@ def phase_loaders(dev, card, features, train=None):
     return out
 
 
+# -- the parallel phase (14): meshes, sharded training and serving ---------
+
+PARALLEL_SHARDS = 4               # the logical data mesh on one card
+PARALLEL_BATCHES = (24, 25)       # even on every mesh; the protocol's
+PARALLEL_LOSS_RTOL = 1e-5         # mesh vs the one-device step
+PARALLEL_GRAD_TOL = 1e-3          # rel L2 of all gradients, float64
+PARALLEL_PRED_TOL = 2e-5          # sharded vs single-device protocol
+PARALLEL_SECONDS = 10.0
+PARALLEL_PER_DEVICE = (250, 100)  # 250: the request is all tail at 431
+PARALLEL_TIMED_STEPS = 3
+PARALLEL_RUNNER_FRAMES = 250      # per synthetic file: a super-batch of 200
+
+
+def parallel_meshes(dev):
+    """(name, mesh): the visible cards, and two logical meshes of four
+    shards on the card (``dev`` named four times)."""
+    from multipitch_architectures_tpu_torch.parallel import make_mesh
+
+    return (("cards", make_mesh()),
+            (f"data={PARALLEL_SHARDS}",
+             make_mesh(devices=[dev] * PARALLEL_SHARDS)),
+            ("data=2 x model=2",
+             make_mesh(devices=[dev] * PARALLEL_SHARDS, model_axis=2)))
+
+
+def parallel_step(dev, mesh, x, y, w, dtype, deterministic=True):
+    """One AdamW step of exp180d at full width (the weights the JAX
+    package's ``model.init`` draws, seeded; dropout on, its generator
+    seeded) on ``mesh``, or on ``dev`` without one: (loss, all gradients
+    flattened, float64, on the card; the trainer)."""
+    import torch
+
+    from multipitch_architectures_tpu_torch.models import init_parameters_flax
+    from multipitch_architectures_tpu_torch.train import TrainConfig, Trainer
+
+    model = train_model()
+    init_parameters_flax(model, torch.Generator().manual_seed(SEED))
+    cfg = TrainConfig(**{**TRAIN_STEP_CONFIG, "batch_size": x.shape[0],
+                         "deterministic": deterministic})
+    trainer = Trainer(model.to(dtype), cfg, device=None if mesh else dev,
+                      mesh=mesh)
+    torch.manual_seed(SEED)
+    loss = float(trainer.train_step(x.to(dtype), y.to(dtype), w))
+    grad = torch.cat([p.grad.flatten().double()
+                      for p in trainer.model.parameters()])
+    return loss, grad, trainer
+
+
+def parallel_train(dev, card, meshes):
+    """Phase 14a: exp180d on each mesh against the one-device step on
+    the same (explicitly padded and weighted) batch, in float32 and in
+    float64; returns the worst loss and gradient gaps."""
+    import torch
+
+    from multipitch_architectures_tpu_torch.data import FileSpec, TrainPipeline
+
+    pipeline = TrainPipeline([FileSpec(*synth_file(1200, seed=s))
+                              for s in range(3)], device=dev)
+    batches = {b: next(pipeline.batches(SEED, b, shuffle=False))
+               for b in PARALLEL_BATCHES}
+    refs, worst = {}, {"loss": 0.0, "grad64": 0.0, "grad32": 0.0}
+    for name, mesh in meshes:
+        for b in PARALLEL_BATCHES:
+            x, y = batches[b]
+            n = b + (-b) % mesh.size
+            for dtype in (torch.float32, torch.float64):
+                if (b, n, dtype) not in refs:
+                    # the rows and weights the mesh's padding gives
+                    idx = torch.arange(n, device=dev) % b
+                    w = None if n == b else (idx == torch.arange(
+                        n, device=dev)).to(dtype)
+                    refs[b, n, dtype] = parallel_step(
+                        dev, None, x[idx], y[idx], w, dtype)[:2]
+                loss0, grad0 = refs[b, n, dtype]
+                loss, grad, _ = parallel_step(dev, mesh, x, y, None, dtype)
+                rel_loss = abs(loss - loss0) / abs(loss0)
+                rel_grad = float((grad - grad0).norm() / grad0.norm())
+                bits = 64 if dtype == torch.float64 else 32
+                worst["loss"] = max(worst["loss"], rel_loss)
+                worst[f"grad{bits}"] = max(worst[f"grad{bits}"], rel_grad)
+                print(f"[parallel] exp180d step, batch {b} on {name} "
+                      f"{mesh.shape} (padded to {n}), float{bits}: loss "
+                      f"{loss:.7f} vs one device {loss0:.7f}, rel "
+                      f"{rel_loss:.2e} (<= {PARALLEL_LOSS_RTOL:g}); all "
+                      f"gradients rel L2 {rel_grad:.2e}" + (
+                          f" (<= {PARALLEL_GRAD_TOL:g})" if bits == 64 else
+                          " (float32: printed, held in float64)"))
+                if not (rel_loss <= PARALLEL_LOSS_RTOL and (
+                        bits == 32 or rel_grad <= PARALLEL_GRAD_TOL)):
+                    raise AssertionError(f"{name}: the sharded step differs "
+                                         f"from the one-device step")
+    return worst
+
+
+def parallel_timing(dev, card, meshes):
+    """Phase 14b: ms per exp180d ``train_step`` at batch 24 on one device
+    and on each mesh, ``deterministic`` on and off (CUDA events)."""
+    import dataclasses
+
+    import torch
+
+    x, y = (torch.rand(PARALLEL_BATCHES[0], 6, 75, 216, device=dev),
+            (torch.rand(PARALLEL_BATCHES[0], 1, 1, 72, device=dev) > 0.9
+             ).float())
+    times = {}
+    for name, mesh in (("one device", None),) + tuple(meshes):
+        if name == "cards" and mesh.size == 1:
+            continue      # one card: the one-device step with a mesh's cost
+        _, _, trainer = parallel_step(dev, mesh, x, y, None, torch.float32)
+        for det in (True, False):
+            trainer.config = dataclasses.replace(trainer.config,
+                                                 deterministic=det)
+            times[name, det] = cuda_ms(lambda: trainer.train_step(x, y),
+                                       reps=PARALLEL_TIMED_STEPS, warmup=1)
+        print(f"[parallel] exp180d train_step at batch "
+              f"{PARALLEL_BATCHES[0]} on {name}"
+              + ("" if mesh is None else f" {mesh.shape}")
+              + f": {times[name, True]:.2f} ms with deterministic on, "
+              f"{times[name, False]:.2f} ms off ({PARALLEL_TIMED_STEPS} steps "
+              f"after 1, CUDA events); {card}"
+              + ("" if mesh is None or name == "cards" else
+                 "; logical shards of one card measure the mechanism's "
+                 "overhead, not a speed-up"))
+    return times
+
+
+def parallel_serving(dev, card, mesh):
+    """Phase 14c: a 10-s exp180e request (HCQT on K1, ``cross_batch:50``)
+    through ``predict_framewise_sharded`` on the logical data mesh, per
+    device batches of 250 (the request's 431 windows are all tail) and
+    100 (a super-batch of 400, a tail of 31), against
+    ``predict_framewise(batch_size=250, group=50)``; returns the K1
+    launches (one per request) and the gap."""
+    import torch
+
+    from multipitch_architectures_tpu_torch.dsp import hcqt
+    from multipitch_architectures_tpu_torch.eval import (
+        predict_framewise, predict_framewise_sharded)
+    from multipitch_architectures_tpu_torch.experiments import load_experiment
+    from multipitch_architectures_tpu_torch.models import init_parameters
+    from multipitch_architectures_tpu_torch.ops.cqt_octave import cqt_octaves
+
+    model = load_experiment(EXPERIMENT).build_model(
+        attn_mode=f"cross_batch:{GROUP}")
+    init_parameters(model, torch.Generator().manual_seed(SEED))
+    model.eval().to(dev)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    y = audio(PARALLEL_SECONDS, SEED + 14)
+    cqt_octaves.launches = 0
+    worst = 0.0
+    for per_device in PARALLEL_PER_DEVICE:
+        f, hcqt_ms = timed(lambda: hcqt(y, device=dev, **HCQT_KW)[0])
+        want, one_ms = timed(lambda: predict_framewise(
+            model, f, batch_size=BATCH, group=GROUP))
+        for _ in range(2):       # the second call is timed warm
+            got, sharded_ms = timed(lambda: predict_framewise_sharded(
+                model, f, mesh, per_device_batch=per_device, group=GROUP))
+        gap = float((got - want).abs().max())
+        worst = max(worst, gap)
+        ok = (got.shape == (frames(PARALLEL_SECONDS), 72)
+              and bool(torch.isfinite(got).all()) and gap <= PARALLEL_PRED_TOL)
+        print(f"[parallel] {PARALLEL_SECONDS:g}-s exp180e request on "
+              f"{mesh.shape}, per-device batch {per_device}, group {GROUP}: "
+              f"{tuple(got.shape)}, max abs gap to predict_framewise("
+              f"batch_size={BATCH}) {gap:.2e} (<= {PARALLEL_PRED_TOL:g}); "
+              f"sharded {sharded_ms:.1f} ms, one device {one_ms:.1f} ms, "
+              f"hcqt {hcqt_ms:.1f} ms (host clock, synchronised); {card}; "
+              f"logical shards of one card measure the mechanism's "
+              f"overhead, not a speed-up")
+        if not ok:
+            raise AssertionError("the sharded request differs from the "
+                                 "single-device protocol")
+    if cqt_octaves.launches != len(PARALLEL_PER_DEVICE):
+        raise AssertionError(f"{cqt_octaves.launches} CQT launches in "
+                             f"{len(PARALLEL_PER_DEVICE)} requests")
+    return cqt_octaves.launches, worst
+
+
+def parallel_runner(dev, card, mesh):
+    """Phase 14d: one ``run_experiment`` test phase of exp180d (seeded
+    weights, synthetic files) on the logical data mesh against
+    the same run on one device: every stored prediction within 2e-5."""
+    import logging
+    import tempfile
+
+    from multipitch_architectures_tpu_torch.experiments import (
+        SyntheticCorpus, load_experiment, run_experiment)
+
+    cfg = load_experiment(TRAIN_EXPERIMENT)
+    corpus = SyntheticCorpus(cfg, frames=PARALLEL_RUNNER_FRAMES,
+                             n_train_files=1, seed=SEED)
+    kw = dict(do_train=False, do_val=False, store_predictions=True,
+              store_results_filewise=False)
+    records = []
+
+    class Capture(logging.Handler):
+        def emit(self, r):
+            records.append(r.getMessage())
+
+    with tempfile.TemporaryDirectory() as tmp:
+        log = logging.getLogger("parallel_runner")
+        log.setLevel(logging.INFO)
+        log.addHandler(Capture())
+        t0 = time.perf_counter()
+        run_experiment(cfg, corpus, os.path.join(tmp, "one"), logger=log,
+                       device=dev, **kw)
+        t1 = time.perf_counter()
+        run_experiment(cfg, corpus, os.path.join(tmp, "mesh"), logger=log,
+                       mesh=mesh, **kw)
+        t2 = time.perf_counter()
+        one = os.path.join(tmp, "one", "predictions", cfg.name)
+        names = sorted(os.listdir(one))
+        gap = max(float(np.abs(
+            np.load(os.path.join(tmp, "mesh", "predictions", cfg.name, n))
+            - np.load(os.path.join(one, n))).max()) for n in names)
+    sharded = [m for m in records if m.startswith("Test dispatch sharded")]
+    print(f"[parallel] run_experiment test phase of exp180d on "
+          f"{mesh.shape}: {sharded}; {len(names)} prediction files, max "
+          f"abs gap to the one-device run {gap:.2e} (<= "
+          f"{PARALLEL_PRED_TOL:g}); {t2 - t1:.1f} s vs {t1 - t0:.1f} s")
+    if not (sharded and names and gap <= PARALLEL_PRED_TOL):
+        raise AssertionError("the sharded test phase differs from the "
+                             "one-device run")
+    return gap
+
+
+def phase_parallel(dev, card):
+    """Phase 14 of the module docstring: returns the K1 launches of its
+    requests and the numbers PERF.md keeps."""
+    meshes = parallel_meshes(dev)
+    for name, mesh in meshes:
+        print(f"[parallel] mesh {name}: {mesh}")
+    out = {"train": parallel_train(dev, card, meshes)}
+    out["times"] = parallel_timing(dev, card, meshes)
+    launches, out["serving_gap"] = parallel_serving(dev, card, meshes[1][1])
+    out["runner_gap"] = parallel_runner(dev, card, meshes[1][1])
+    return launches, out
+
+
 def main():
     import tempfile
 
@@ -3504,7 +3770,7 @@ def main():
 
 
 def run_phases(dev, card, procs, lap, tmp):
-    """Phases 2-13; returns the kernels' launches on the main paths and
+    """Phases 2-14; returns the kernels' launches on the main paths and
     their measurements."""
     phase_build()
     lap("device and build")
@@ -3574,8 +3840,21 @@ def run_phases(dev, card, procs, lap, tmp):
     print("[loaders] the loader paths launched no kernel (their work is the "
           "host's and the copies')")
     lap("loaders")
+
+    int8_conv2d_dequant.launches = cqt_octaves.launches = 0
+    parallel_cqt, _ = phase_parallel(dev, card)
+    if cqt_octaves.launches != parallel_cqt or int8_conv2d_dequant.launches:
+        raise AssertionError(f"parallel: {cqt_octaves.launches} CQT "
+                             f"launches counted, {parallel_cqt} by request; "
+                             f"{int8_conv2d_dequant.launches} int8 GEMM")
+    print(f"[parallel] the sharded paths launched the CQT kernel "
+          f"{parallel_cqt} times (once per request) and the int8 GEMM 0 "
+          f"times (the collectives are device copies and sums: no kernel of "
+          f"their own)")
+    lap("parallel")
     return (cqt_launches + zoo_launches + audio_launches + serving2_cqt
-            + zoo2_cqt, cqt, gemm_launches + serving2_gemm + zoo2_gemm, gemm)
+            + zoo2_cqt + parallel_cqt, cqt,
+            gemm_launches + serving2_gemm + zoo2_gemm, gemm)
 
 
 if __name__ == "__main__":

@@ -16,9 +16,13 @@ model input NCHW ``(B, 6, 75, 216)``, windowed output ``(B, 1, 1, 72)``.
 - ``train``       AdamW trainer, losses, schedulers, early stopping
 - ``experiments`` the experiment registry (read from the JAX package's
                   ``registry.json`` as data), the runner and its CLI
-- ``eval``        the windowed framewise inference protocol, its int8
-                  (W8A8) serving mode with the drift gate, and the
-                  evaluation measures
+- ``eval``        the windowed framewise inference protocol (also
+                  sharded over a device mesh), its int8 (W8A8) serving
+                  mode with the drift gate, and the evaluation measures
+- ``parallel``    the ("data", "model") device mesh: data- and
+                  tensor-parallel training with global-batch BatchNorm,
+                  dropout and cross-batch attention, one process driving
+                  every shard
 
 It imports torch and never JAX. Functions run where their tensors lie;
 entry points take a ``device``, run on the card by default, and raise

@@ -1,5 +1,5 @@
 from .inference import (predict_dense, predict_dense_chunked,
-                        predict_framewise)
+                        predict_framewise, predict_framewise_sharded)
 from .measures import (calculate_eval_measures, calculate_single_measure,
                        compute_eval_measures, normalize_feature_sequence)
 from .mireval import calculate_mpe_measures_mireval, midi_to_hz

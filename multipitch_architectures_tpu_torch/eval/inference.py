@@ -7,6 +7,9 @@ Counterpart of ``multipitch_architectures_tpu/eval/inference.py``:
   (exp180d…py:417-443); the recording is padded by (half_context,
   half_context + 1) frames, and batch composition matters because of the
   cross-batch attention quirk. Every model of the zoo serves this way.
+- :func:`predict_framewise_sharded`, the same protocol with the window
+  batches split over a device mesh's ``data`` axis, protocol-exact for
+  grouped cross-batch attention and for batch-independent models;
 - :func:`predict_dense` and :func:`predict_dense_chunked`, for the
   segmentation CNNs only (stride 1 in time): one pass over the padded
   recording, or over overlapping chunks of it, gives every framewise
@@ -22,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from ..data.windows import gather_windows
+from ..parallel import apply_sharded, gather_rows, replicate, replicated
 
 
 def _pad_inputs(inputs, context):
@@ -111,6 +115,71 @@ def predict_framewise(model, inputs, context=75, batch_size=50,
         start += n
     if return_aux:
         return torch.cat(outs), torch.cat(auxs)
+    return torch.cat(outs)
+
+
+@torch.no_grad()
+def predict_framewise_sharded(model, inputs, mesh, context=75,
+                              per_device_batch=50, compression=10.0,
+                              group=None, batch_independent=False):
+    """The windowed protocol with each fused batch of windows split over
+    the ``data`` axis of ``mesh`` (``parallel.make_mesh``): the
+    counterpart of the JAX package's ``predict_framewise_sharded``.
+
+    The recording and the model are replicated on the mesh (one replica
+    per data shard; the ``model`` axis is not used), and each dispatch
+    gives every data shard ``per_device_batch`` consecutive windows.
+    Protocol exactness needs each shard's batch to be made of the
+    reference loader's batches, so the model must be batch-composition
+    independent (no attention, or ``tokens`` attention: say so with
+    ``batch_independent=True``) or use grouped ``cross_batch:<g>``
+    attention with ``group=g`` and ``per_device_batch`` a multiple of
+    ``g``, so that each group of ``g`` windows lies whole on one shard
+    and reproduces one reference test batch. One of the two must be
+    stated: a plain ``cross_batch`` model's outputs would change with the
+    fused batch size, so calling with neither raises.
+
+    The tail (fewer than ``per_device_batch`` times the data shards'
+    windows) drains through the single-device path on the model's device
+    with :func:`predict_framewise`'s batch composition.
+
+    Returns: (T, bins) float32 tensor on ``inputs``' device, equal to
+    :func:`predict_framewise`'s.
+    """
+    if group is None and not batch_independent:
+        raise ValueError(
+            "predict_framewise_sharded changes the dispatch batch size; "
+            "pass group=<g> for a cross_batch:<g> model, or "
+            "batch_independent=True for models whose outputs do not "
+            "depend on batch composition (no attention / 'tokens' mode)")
+    _check_eval(model, "predict_framewise_sharded")
+    n_data = int(mesh.shape["data"])
+    if group is not None and per_device_batch % group:
+        raise ValueError(f"per_device_batch {per_device_batch} not a "
+                         f"multiple of attention group {group}")
+    x = _compressed(inputs, compression)
+    t = x.shape[1]
+    half = context // 2
+    xp = _pad_inputs(x, context)
+    placed = replicated(mesh).place(xp).shards[::mesh.shape["model"]]
+    replicas = replicate(model, mesh, tensor_parallel=False)
+    super_batch = per_device_batch * n_data
+    outs = []
+    start = 0
+    while t - start >= super_batch:
+        windows = [gather_windows(
+            xp_d, half + start + d * per_device_batch
+            + np.arange(per_device_batch), context)
+            for d, xp_d in enumerate(placed)]
+        y = gather_rows(apply_sharded(replicas, mesh, windows), mesh,
+                        x.device)
+        outs.append(_first(y).reshape(super_batch, -1))
+        start += super_batch
+    if start < t:
+        device = next(model.parameters()).device
+        outs.append(predict_framewise(
+            model, x.to(device), context, per_device_batch, None, group,
+            start_frame=start).to(x.device))
     return torch.cat(outs)
 
 

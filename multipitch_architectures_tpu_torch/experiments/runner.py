@@ -1,4 +1,4 @@
-"""The single experiment runner, on one device.
+"""The single experiment runner, on one device or a device mesh.
 
 Counterpart of ``multipitch_architectures_tpu/experiments/runner.py``,
 which replaces the reference's per-script train/val/test program
@@ -10,7 +10,8 @@ implementation driven by :class:`ExperimentConfig`:
 - test on the reference's 3 subsets (10-file full / 3-file first 90 s
   (3920 frames) / 3-file full, exp180d…py:403-426) with the stride-1
   windowed protocol (``eval.predict_framewise``; cross-batch attention
-  models regrouped as ``cross_batch:<test_batch_size>``), per-file
+  models regrouped as ``cross_batch:<test_batch_size>``; on a mesh with
+  more than one data shard, ``eval.predict_framewise_sharded``), per-file
   predictions saved as .npy, both measure families (11 + 14), filewise
   and frame-weighted means logged in the reference's format, subset 0
   written to CSV (with the ``csv`` module, in pandas' layout: the
@@ -19,8 +20,6 @@ implementation driven by :class:`ExperimentConfig`:
 Corpora: precomputed ``.npy`` features (:class:`NpyCorpus`), audio and
 note-event files turned into features at load time (:class:`AudioCorpus`,
 the HCQT on the device) and synthetic data (:class:`SyntheticCorpus`).
-The test phase's dispatch sharded over several devices is left out by
-design: the port runs on one card.
 """
 
 import csv
@@ -39,7 +38,7 @@ import torch
 from .. import resolve_device
 from ..data import FileSpec, TrainPipeline
 from ..eval import (calculate_eval_measures, calculate_mpe_measures_mireval,
-                    predict_framewise)
+                    predict_framewise, predict_framewise_sharded)
 from ..ops.attention import TorchMultiheadAttention
 from ..train.trainer import Trainer, _Checkpointer
 from ..utils import model_summary
@@ -252,10 +251,13 @@ def run_experiment(cfg: ExperimentConfig, corpus, out_dir: str,
                    do_test: bool = True, store_predictions: bool = True,
                    store_results_filewise: bool = True,
                    max_epochs_override: Optional[int] = None,
-                   resume: bool = False, device=None) -> Dict:
+                   resume: bool = False, device=None, mesh=None) -> Dict:
     """Run one experiment end to end on ``device`` (the card by default;
-    raises without one unless ``device="cpu"``). Returns a results dict
-    with the history and the per-subset measure aggregates.
+    raises without one unless ``device="cpu"``), or on ``mesh``
+    (``parallel.make_mesh``; it implies the device): training sharded
+    over it, and the test phase's windows over its data shards. Returns
+    a results dict with the history and the per-subset measure
+    aggregates.
 
     ``corpus`` may be a single corpus (NpyCorpus/AudioCorpus/
     SyntheticCorpus) or a
@@ -266,7 +268,8 @@ def run_experiment(cfg: ExperimentConfig, corpus, out_dir: str,
     state, epoch, lr, metric) and continues from the next epoch,
     deterministically with respect to a straight run.
     """
-    device = resolve_device(device)
+    device = resolve_device(mesh.device if mesh is not None and
+                            device is None else device)
     if isinstance(corpus, (list, tuple)):
         corpus = _MultiCorpus(list(corpus))
     logger = logger or _default_logger(cfg.name, out_dir)
@@ -286,7 +289,8 @@ def run_experiment(cfg: ExperimentConfig, corpus, out_dir: str,
     tcfg = cfg.train_config
     if max_epochs_override is not None:
         tcfg = dataclasses.replace(tcfg, max_epochs=max_epochs_override)
-    trainer = Trainer(model, tcfg, logger=logger, device=device).init()
+    trainer = Trainer(model, tcfg, logger=logger, device=device,
+                      mesh=mesh).init()
 
     test_and_val = list(cfg.test_versions) + list(cfg.val_versions)
     for subset in cfg.extra_test_subsets.values():
@@ -374,7 +378,8 @@ def run_experiment(cfg: ExperimentConfig, corpus, out_dir: str,
                     "###################### \n")
         if do_train and tcfg.early_stopping and ckpt.exists():
             ckpt.restore(trainer)
-        predict = _make_test_predict(cfg, trainer.model, device)
+        predict = _make_test_predict(cfg, trainer.model, device, mesh,
+                                     logger)
 
         subsets = [("large test set (10 files)", cfg.test_versions, None),
                    ("small test set (3 files), first 90s",
@@ -464,13 +469,20 @@ def _log_startup_config(cfg, logger, do_train, do_val, do_test,
     logger.info("Model parameters: %s", cfg.model_kwargs)
 
 
-def _make_test_predict(cfg, model, device):
+def _make_test_predict(cfg, model, device, mesh, logger):
     """The test phase's whole-recording prediction: the windowed protocol
     (``predict_framewise``) in batches of ``test_batch_size``. A model
     with cross-batch attention is rebuilt with
     ``cross_batch:<test_batch_size>`` and the trained weights, so that
     each attention group is one reference test batch
-    (exp180d…py:417-426)."""
+    (exp180d…py:417-426).
+
+    When ``mesh`` has more than one data shard, the windows split over
+    them instead (``predict_framewise_sharded``, ``test_batch_size`` per
+    shard), with the same batch composition: grouped attention's groups
+    land whole on a shard, and models without cross-batch attention
+    dispatch freely. A group that does not divide ``test_batch_size``
+    keeps the single-device dispatch."""
     modes = {m.mode for m in model.modules()
              if isinstance(m, TorchMultiheadAttention)}
     group = None
@@ -480,6 +492,31 @@ def _make_test_predict(cfg, model, device):
         grouped.load_state_dict(model.state_dict())
         model = grouped.to(device)
     model.eval()
+    # a model built with cross_batch:<g> keeps its groups
+    shard_group = group or max((int(m.split(":", 1)[1]) for m in modes
+                                if m.startswith("cross_batch:")),
+                               default=None)
+    n_data = int(mesh.shape["data"]) if mesh is not None else 1
+    if n_data > 1 and shard_group and cfg.test_batch_size % shard_group:
+        logger.info("sharded test dispatch disabled: test batch size %d is "
+                    "not a multiple of attention group %d",
+                    cfg.test_batch_size, shard_group)
+        n_data = 1
+    if n_data > 1:
+        logger.info("Test dispatch sharded over %d data devices (per-device "
+                    "batch %d%s)", n_data, cfg.test_batch_size,
+                    f", attention group {shard_group}" if shard_group
+                    else "")
+
+        def predict(inputs):
+            x = torch.as_tensor(inputs, dtype=torch.float32, device=device)
+            return predict_framewise_sharded(
+                model, x, mesh, context=cfg.context,
+                per_device_batch=cfg.test_batch_size,
+                compression=cfg.augment.compression, group=shard_group,
+                batch_independent=shard_group is None).cpu().numpy()
+
+        return predict
 
     def predict(inputs):
         x = torch.as_tensor(inputs, dtype=torch.float32, device=device)

@@ -1,4 +1,4 @@
-"""The single configurable trainer, on one device.
+"""The single configurable trainer, on one device or a device mesh.
 
 Counterpart of ``multipitch_architectures_tpu/train/trainer.py``, which
 replaces the copy-pasted train/val/checkpoint loop of the reference's
@@ -30,9 +30,17 @@ BatchNorm is torch's, as in the reference: its running variance takes
 the unbiased batch variance, where flax's takes the biased one (a factor
 n/(n-1) on each update, n the elements per channel).
 
-Left out: the JAX package's device mesh, ``_shard``'s padding of batches
-to a multiple of the device count, and ``NamedSharding``. The port
-trains on one card (ROADMAP queue 1 item 10).
+On a mesh (``parallel.make_mesh``), as the JAX package's trainer: each
+batch is padded to a multiple of the mesh's device count by repeating
+its leading samples, with loss weight 0 (``_shard``), and split over the
+``data`` axis; the step runs one replica per cell, each in its thread,
+with BatchNorm statistics, dropout masks and cross-batch attention of
+the global (padded) batch (``parallel.spmd``), the ``model`` axis
+splitting the transformer layers' attention and MLPs; the loss is taken
+on the gathered outputs, and the gradients of the replicas' parameters
+sum into the model's on the mesh's first device, where the optimizer
+runs. The model itself stays whole there, so a checkpoint is the
+single-device state and loads on one device or another mesh.
 """
 
 import contextlib
@@ -48,6 +56,8 @@ import torch
 from .. import resolve_device
 from ..data.pipeline import fold_in
 from ..models.layers import init_parameters_flax
+from ..parallel import (apply_sharded, batch_sharding, gather_rows,
+                        reduce_grads, replicate, shard_leaves)
 from .losses import bce_loss, multitask_bce_ce_loss
 from .monitoring import EarlyStopping
 from .schedulers import (NoamSchedule, ReduceLROnPlateau,
@@ -101,6 +111,15 @@ def _cudnn_deterministic(on: bool):
         torch.backends.cudnn.deterministic = before
 
 
+def _same_device(a, b) -> bool:
+    """``a`` and ``b`` name one device (``"cuda"`` is the current card)."""
+    def full(d):
+        d = torch.device(d)
+        return torch.device("cuda", torch.cuda.current_device()) \
+            if d.type == "cuda" and d.index is None else d
+    return full(a) == full(b)
+
+
 def _loss_fn_for(name: str) -> Callable:
     if name == "bce":
         def fn(outputs, y, weights):
@@ -124,10 +143,20 @@ class Trainer:
         logger: python logger (reference-format epoch lines).
         device: the card by default (raises without one unless
             ``device="cpu"``).
+        mesh: an optional ``parallel.Mesh``: the steps run sharded over
+            it (module docstring). It implies the device, its first; a
+            ``device`` that is another raises.
     """
 
     def __init__(self, model, config: TrainConfig,
-                 logger: Optional[logging.Logger] = None, device=None):
+                 logger: Optional[logging.Logger] = None, device=None,
+                 mesh=None):
+        if mesh is not None:
+            if device is not None and not _same_device(device, mesh.device):
+                raise ValueError(f"device {device} is not the mesh's first "
+                                 f"device {mesh.device}")
+            device = mesh.device
+        self.mesh = mesh
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.config = config
@@ -185,12 +214,51 @@ class Trainer:
 
     # -- steps ------------------------------------------------------------
 
+    def _shard(self, x, y, w=None):
+        """Pad the batch to a multiple of the mesh's device count and
+        place it over the ``data`` axis: ``(xs, ys, ws)``, each a
+        ``parallel.ShardedTensor``; ``ws`` the per-sample loss weights
+        (``w``, ones by default), 0 for the padding.
+
+        The padding repeats the leading samples (wrap-around) rather than
+        zeros, as the JAX package's ``Trainer._shard``: the padded rows
+        carry no loss weight, but the batch-coupled computations
+        (train-mode BatchNorm statistics, the cross-batch attention
+        quirk) see real data. For a batch-decoupled model the loss is
+        exactly the unpadded mean."""
+        n = x.shape[0]
+        pad = (-n) % self.mesh.size
+        w = torch.ones(n, dtype=x.dtype, device=x.device) if w is None \
+            else torch.as_tensor(w, dtype=x.dtype, device=x.device)
+        if pad:
+            reps = -(-(n + pad) // n)
+            x = torch.cat([x] * reps)[:n + pad]
+            y = torch.cat([y] * reps)[:n + pad]
+            w = torch.cat([w, w.new_zeros(pad)])
+        place = batch_sharding(self.mesh).place
+        return place(x), place(y), place(w)
+
+    def _forward(self, x, y, w):
+        """(loss, leaves): the loss of the batch through the model, or on
+        the mesh through its replicas (the padded batch, gathered
+        outputs), whose parameters are ``leaves``
+        (``parallel.shard_leaves``; None without a mesh)."""
+        if self.mesh is None:
+            return self._loss(self.model(x), y, w), None
+        xs, ys, ws = self._shard(x, y, w)
+        leaves = shard_leaves(self.model, self.mesh)
+        replicas = replicate(self.model, self.mesh, params=leaves)
+        out = gather_rows(apply_sharded(replicas, self.mesh, xs.shards),
+                          self.mesh, self.device)
+        return self._loss(out, ys.gather(), ws.gather()), leaves
+
     def train_step(self, x, y, w=None):
         """One AdamW update on the batch ``(x, y)`` with optional
         per-sample loss weights ``w`` (B,), the model in train mode
         (dropout draws from the device's default generator; BatchNorm
-        uses and advances batch statistics). Returns the loss, a 0-d
-        tensor on the device: nothing waits for the card."""
+        uses and advances batch statistics; on a mesh, of the padded
+        global batch). Returns the loss, a 0-d tensor on the device:
+        nothing waits for the card."""
         if self._noam is not None:
             self.lr = self._noam.update_rate(self.step)
         for group in self.optimizer.param_groups:
@@ -198,8 +266,10 @@ class Trainer:
         self.model.train()
         self.optimizer.zero_grad(set_to_none=True)
         with _cudnn_deterministic(self.config.deterministic):
-            loss = self._loss(self.model(x), y, w)
+            loss, leaves = self._forward(x, y, w)
             loss.backward()
+        if leaves is not None:
+            reduce_grads(self.model, self.mesh, leaves)
         self.optimizer.step()
         self.step += 1
         return loss.detach()
@@ -209,10 +279,16 @@ class Trainer:
         """The loss of ``(x, y)`` without gradients. With
         ``config.val_in_train_mode`` the model runs in train mode and the
         forward also advances the BatchNorm running statistics, which are
-        kept, as the reference's validation loop does."""
+        kept, as the reference's validation loop does. On a mesh, a batch
+        that is not a multiple of its device count runs unpadded on the
+        first device in that mode (the JAX package places it replicated):
+        padded rows would enter the statistics that the mode keeps."""
         self.model.train(self.config.val_in_train_mode)
         with _cudnn_deterministic(self.config.deterministic):
-            return self._loss(self.model(x), y, w)
+            if self.mesh is not None and self.config.val_in_train_mode \
+                    and x.shape[0] % self.mesh.size:
+                return self._loss(self.model(x), y, w)
+            return self._forward(x, y, w)[0]
 
     # -- epoch loop -------------------------------------------------------
 

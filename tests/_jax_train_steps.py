@@ -1,10 +1,17 @@
-"""The JAX side of the trainer parity in tests/test_torch_train.py.
+"""The JAX side of the trainer parity in tests/test_torch_train.py and
+tests/test_torch_parallel.py.
 
 Three steps of the JAX package's ``Trainer._train_step`` and one
 ``_eval_step`` in train mode (``val_in_train_mode``), on the protocol
 golden's tiny SAUnet with its attention dropout at 0, in float64:
 
     python tests/_jax_train_steps.py OUT.npz
+
+or, with ``--mesh8``, one step of the same model at batch 5 on an
+8-device data mesh (virtual CPU devices), the batch padded to 8 by the
+trainer's ``_shard``:
+
+    python tests/_jax_train_steps.py --mesh8 OUT.npz
 
 It runs as a process of its own so that XLA compiles with its default
 optimisation: the test suite's conftest turns that off, and float64
@@ -25,6 +32,9 @@ TINY = dict(n_chan_layers=(8, 8, 4, 2), n_bins_out=72, scalefac=16,
 # weights; AdamW eps 1e-4 (see tests/test_torch_train.py)
 TRAIN_CONFIG = dict(batch_size=2, scheduler=None, early_stopping=False,
                     eps=1e-4, val_in_train_mode=True)
+# the padded data-parallel step: 5 samples on 8 shards
+MESH_TRAIN_CONFIG = dict(batch_size=5, scheduler=None, early_stopping=False,
+                         eps=1e-4)
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "goldens",
                       "predict_framewise_golden.npz")
 
@@ -37,6 +47,13 @@ def batches():
              np.array([1.0, 0.5])) for _ in range(4)]
 
 
+def mesh_batch():
+    """The batch of the 8-shard step: (x, y) float64, 5 samples."""
+    rng = np.random.RandomState(2)
+    return (np.log1p(10 * rng.rand(5, 6, 75, 216)),
+            (rng.rand(5, 1, 1, 72) > 0.9).astype(np.float64))
+
+
 def golden_variables():
     from flax import serialization
 
@@ -44,20 +61,12 @@ def golden_variables():
     return serialization.msgpack_restore(g["variables_msgpack"].tobytes())
 
 
-def main(out_path):
-    import jax
-
-    jax.config.update("jax_platforms", "cpu")
+def no_attn_dropout_model():
+    """The tiny SAUnet with its attention layers' dropout at 0."""
     import flax.linen as fnn
-    import jax.numpy as jnp
-    from flax import traverse_util
-    from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-    sys.path.insert(0, os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))))
     from multipitch_architectures_tpu.models import layers as jl
     from multipitch_architectures_tpu.models import unets as ju
-    from multipitch_architectures_tpu.train import trainer as jt
 
     class NoAttnDropout(ju.SimpleUNetDoubleSelfAttn):
         """``SimpleUNetDoubleSelfAttn.__call__`` with ``p_dropout=0.0``
@@ -82,27 +91,77 @@ def main(out_path):
                            alt_order=self.alt_order)
             return ju._to_nchw(self._head(h, train))
 
+    return NoAttnDropout(**TINY)
+
+
+def _save(out, tag, params, stats):
+    from flax import traverse_util
+
+    flat = traverse_util.flatten_dict(
+        {"params": params, "batch_stats": stats}, sep="/")
+    out.update({f"{tag}/{k}": np.asarray(v) for k, v in flat.items()})
+
+
+def _float64_state(trainer):
+    import jax
+    import jax.numpy as jnp
+
+    from multipitch_architectures_tpu.train import trainer as jt
+
+    variables = jax.tree.map(lambda a: jnp.asarray(a, jnp.float64),
+                             golden_variables())
+    return jax.device_put(jt.TrainState(
+        step=jnp.zeros((), jnp.int32), params=variables["params"],
+        batch_stats=variables["batch_stats"],
+        opt_state=trainer.tx.init(variables["params"]), tx=trainer.tx),
+        trainer._replicated)
+
+
+def main_mesh8(out_path):
+    """One step at batch 5 on an 8-device data mesh (``--mesh8``)."""
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    import jax.numpy as jnp
+
+    from multipitch_architectures_tpu.parallel import make_mesh
+    from multipitch_architectures_tpu.train import trainer as jt
+
+    out = {}
+    with jax.enable_x64(True):
+        trainer = jt.Trainer(no_attn_dropout_model(),
+                             jt.TrainConfig(**MESH_TRAIN_CONFIG),
+                             mesh=make_mesh(8))
+        state = _float64_state(trainer)
+        x, y = mesh_batch()
+        xs, ys, ws = trainer._shard(jnp.asarray(x), jnp.asarray(y))
+        state, loss = trainer._train_step(state, xs, ys, ws,
+                                          jax.random.PRNGKey(0))
+        out["loss"] = np.array(float(loss))
+        out["weights"] = np.asarray(ws)
+        _save(out, "after_step", state.params, state.batch_stats)
+    np.savez(out_path, **out)
+
+
+def main(out_path):
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    import jax.numpy as jnp
+    from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+
+    from multipitch_architectures_tpu.train import trainer as jt
+
     out = {}
     data = batches()
     for i, (x, y, w) in enumerate(data):
         out[f"batch{i}/x"], out[f"batch{i}/y"], out[f"batch{i}/w"] = x, y, w
 
-    def save(tag, params, stats):
-        flat = traverse_util.flatten_dict(
-            {"params": params, "batch_stats": stats}, sep="/")
-        out.update({f"{tag}/{k}": np.asarray(v) for k, v in flat.items()})
-
     with jax.enable_x64(True):
-        variables = jax.tree.map(lambda a: jnp.asarray(a, jnp.float64),
-                                 golden_variables())
         mesh = Mesh(np.array(jax.devices()[:1]), ("data",))
-        trainer = jt.Trainer(NoAttnDropout(**TINY),
+        trainer = jt.Trainer(no_attn_dropout_model(),
                              jt.TrainConfig(**TRAIN_CONFIG), mesh=mesh)
-        state = jax.device_put(jt.TrainState(
-            step=jnp.zeros((), jnp.int32), params=variables["params"],
-            batch_stats=variables["batch_stats"],
-            opt_state=trainer.tx.init(variables["params"]), tx=trainer.tx),
-            trainer._replicated)
+        state = _float64_state(trainer)
         sharded = NamedSharding(mesh, P("data"))
 
         def put(a):
@@ -114,15 +173,22 @@ def main(out_path):
                                               jax.random.PRNGKey(i))
             losses.append(float(loss))
         out["losses"] = np.array(losses)
-        save("after_steps", state.params, state.batch_stats)
+        _save(out, "after_steps", state.params, state.batch_stats)
         x, y, w = data[3]
         loss, stats = trainer._eval_step(state.params, state.batch_stats,
                                          put(x), put(y), put(w), True,
                                          jax.random.PRNGKey(9))
         out["val_loss"] = np.array(float(loss))
-        save("after_val", state.params, stats)
+        _save(out, "after_val", state.params, stats)
     np.savez(out_path, **out)
 
 
 if __name__ == "__main__":
-    main(sys.argv[1])
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    if sys.argv[1] == "--mesh8":
+        # before JAX is imported: 8 virtual CPU devices
+        os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+        main_mesh8(sys.argv[2])
+    else:
+        main(sys.argv[1])

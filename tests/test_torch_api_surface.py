@@ -9,9 +9,9 @@ exceptions:
   test fails once a listed name exists in the port, so the list shrinks
   with the port and cannot go stale;
 - ``BY_DESIGN``: names with no port: the flax- and optax-only names, the
-  Pallas kernel (its counterpart is ``ops/cqt_octave.py``), the reverse
-  weight porters (their counterpart is ``models.state_dict_from_flax``)
-  and the device-mesh names (the port runs on one card).
+  Pallas kernel (its counterpart is ``ops/cqt_octave.py``) and the
+  reverse weight porters (their counterpart is
+  ``models.state_dict_from_flax``).
 
 Also: every registry entry builds on the ``meta`` device, and
 ``build_model`` drops no registry model argument but ``n_ch_out``; both
@@ -38,25 +38,20 @@ PORT = os.path.join(ROOT, "multipitch_architectures_tpu_torch")
 # change adds)
 NOT_YET = {}
 
-_MESH = {"batch_sharding", "make_mesh", "replicated", "shard_params",
-         "tensor_parallel_param_specs"}
 _FLAX_INT8 = {"SCALES_COLLECTION", "make_int8_interceptor",
               "quantized_apply_fn", "quantized_serving_fn"}
 BY_DESIGN = {
     "train/__init__.py": {"TrainState"},
     "train/trainer.py": {"TrainState"},
     "train/schedulers.py": {"noam_optax_schedule"},
-    "eval/__init__.py": _FLAX_INT8 | {"predict_framewise_sharded"},
+    "eval/__init__.py": _FLAX_INT8,
     "eval/quant.py": _FLAX_INT8,
-    "eval/inference.py": {"predict_framewise_sharded"},
     "ops/pallas_cqt.py": {"cqt_octave_pallas"},
     "models/port.py": {"export_state_dict", "port_basic_cnn",
                        "port_basic_cnn_segm", "port_basic_cnn_segm_blank",
                        "port_deep_cnn_segm_sigmoid",
                        "port_freq_u_net_selfattn", "port_simple_u_net",
                        "port_unet_auto", "port_unet_transenc"},
-    "parallel/__init__.py": _MESH,
-    "parallel/mesh.py": _MESH,
 }
 
 
