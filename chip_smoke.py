@@ -12,9 +12,9 @@ pitch rolls, training from them and precomputing them), serving
 beyond the windowed protocol (shared ``inc``, exported artifacts in
 float32 and int8, percentile calibration, the PUnet's int8 aux head),
 the zoo's other 19 classes, the native window loader and the
-reference-compatible datasets, and the device mesh (sharded training,
-serving and test phase), in phases, and prints each phase's result on
-its own line:
+reference-compatible datasets, the device mesh (sharded training,
+serving and test phase) and the pretrained-prediction CLI, in phases,
+and prints each phase's result on its own line:
 
 1. device: requires CUDA, prints the card's name and power limit, and
    sets the float32 parity flags (no TF32);
@@ -221,21 +221,47 @@ its own line:
    and two logical meshes of four shards on the card, ``data=4`` and
    ``data=2 x model=2`` (tensor parallelism of the attention and MLPs):
    a. one AdamW step of exp180d at full width (seeded flax-drawn weights,
-      dropout on, its generator seeded) at batch 24 and at the protocol's
-      25 (padded by the trainer to a multiple of the mesh's devices, 28,
-      with loss weight 0) on each mesh, against the one-device step on the
-      same rows and weights, in float32 and in float64: loss rel 1e-5 in
-      both, all gradients' relative L2 1e-3 in float64 (printed in
-      float32, whose gradients of exp180d are good to a few 1e-2);
-   b. the step at batch 24 timed on one device and on each mesh (a
+      its generator seeded) at batch 24 (dropout on) and at the
+      protocol's 25 (padded by the trainer to a multiple of the mesh's
+      devices, 28, with loss weight 0; dropout off on both sides: the
+      mesh step draws the unpadded batch's masks) on each mesh, against
+      the one-device step on the same rows and weights, in float32 and
+      in float64: loss rel 1e-5 in both, all gradients' relative L2 1e-3
+      in float64 (printed in float32, whose gradients of exp180d are
+      good to a few 1e-2);
+   b. CNN:M (exp126c, no batch coupling), dropout on, at batch 5 on the
+      ``data=4`` mesh (padded to 8): its loss equals the unpadded
+      one-device step's (rel 1e-5), as the JAX package's padded step is;
+   c. ``Trainer(model, cfg)`` with no device or mesh: the card count and
+      the path taken (the one-device step on one card, a ``data`` mesh of
+      every card on several);
+   d. the step at batch 24 timed on one device and on each mesh (a
       one-card mesh is not timed), ``deterministic`` on and off;
-   c. a 10-s exp180e request (``cross_batch:50``, its HCQT on K1) through
+   e. a 10-s exp180e request (``cross_batch:50``, its HCQT on K1) through
       ``predict_framewise_sharded`` on the ``data=4`` mesh at per-device
       batches of 250 and 100, within 2e-5 of ``predict_framewise(
       batch_size=250, group=50)``, one K1 launch per request, timed;
-   d. one ``run_experiment`` test phase of exp180d on the ``data=4`` mesh:
+   f. one ``run_experiment`` test phase of exp180d on the ``data=4`` mesh:
       its dispatch sharded, every prediction within 2e-5 of the same run
       on one device.
+15. predict: the pretrained-prediction CLI (``python -m
+   multipitch_architectures_tpu_torch.experiments.predict``, the
+   counterpart of ``examples/predict_pretrained.py``) through its
+   ``main`` in this process, on exp180e at full width with seeded
+   flax-drawn weights saved as a bare ``state_dict`` ``.pt`` and a
+   synthetic 10-s 22.05-kHz WAV made from a seed:
+   a. ``--audio`` against ``compute_efficient_hcqt`` then
+      ``predict_framewise(batch_size=50)`` in this process (1e-5; the
+      same code), one K1 launch;
+   b. ``--hcqt`` on a's HCQT saved in the reference's (216, T, 6) layout,
+      against a (1e-5);
+   c. ``--int8`` against ``predict_framewise_int8`` in this process
+      (1e-6), the same K2/K3 launches, printed;
+   d. PUnet:XL (exp195f) with ``--audio``: its ``_polyphony.npy`` (T, 24)
+      equal to ``predict_framewise(return_aux=True)``'s aux output (1e-5);
+   then a's request once more in a fresh process, within 1e-5 of a.
+   Each request's wall time and the fresh process's start-up are
+   printed.
 
 Each path's kernel launch counts are reset just before its requests and
 read just after. Each phase's seconds are printed at the end. The line
@@ -3486,6 +3512,7 @@ PARALLEL_SECONDS = 10.0
 PARALLEL_PER_DEVICE = (250, 100)  # 250: the request is all tail at 431
 PARALLEL_TIMED_STEPS = 3
 PARALLEL_RUNNER_FRAMES = 250      # per synthetic file: a super-batch of 200
+PADDED_BATCH = 5                  # on data=4: padded to 8
 
 
 def parallel_meshes(dev):
@@ -3500,17 +3527,21 @@ def parallel_meshes(dev):
              make_mesh(devices=[dev] * PARALLEL_SHARDS, model_axis=2)))
 
 
-def parallel_step(dev, mesh, x, y, w, dtype, deterministic=True):
-    """One AdamW step of exp180d at full width (the weights the JAX
-    package's ``model.init`` draws, seeded; dropout on, its generator
-    seeded) on ``mesh``, or on ``dev`` without one: (loss, all gradients
-    flattened, float64, on the card; the trainer)."""
+def parallel_step(dev, mesh, x, y, w, dtype, deterministic=True,
+                  dropout=True, name=TRAIN_EXPERIMENT):
+    """One AdamW step of ``name`` (exp180d) at full width (the weights
+    the JAX package's ``model.init`` draws, seeded; dropout on unless
+    ``dropout`` is false, its generator seeded) on ``mesh``, or on ``dev``
+    without one: (loss, all gradients flattened, float64, on the card;
+    the trainer)."""
     import torch
 
     from multipitch_architectures_tpu_torch.models import init_parameters_flax
     from multipitch_architectures_tpu_torch.train import TrainConfig, Trainer
 
-    model = train_model()
+    model = train_model(name)
+    if not dropout:
+        zero_dropout(model)
     init_parameters_flax(model, torch.Generator().manual_seed(SEED))
     cfg = TrainConfig(**{**TRAIN_STEP_CONFIG, "batch_size": x.shape[0],
                          "deterministic": deterministic})
@@ -3526,7 +3557,10 @@ def parallel_step(dev, mesh, x, y, w, dtype, deterministic=True):
 def parallel_train(dev, card, meshes):
     """Phase 14a: exp180d on each mesh against the one-device step on
     the same (explicitly padded and weighted) batch, in float32 and in
-    float64; returns the worst loss and gradient gaps."""
+    float64, dropout on where the batch needs no padding, off on both
+    sides where it does (the mesh step draws the unpadded batch's masks,
+    which the one-device step on the padded rows does not: phase 14b
+    checks those); returns the worst loss and gradient gaps."""
     import torch
 
     from multipitch_architectures_tpu_torch.data import FileSpec, TrainPipeline
@@ -3540,6 +3574,7 @@ def parallel_train(dev, card, meshes):
         for b in PARALLEL_BATCHES:
             x, y = batches[b]
             n = b + (-b) % mesh.size
+            drop = n == b
             for dtype in (torch.float32, torch.float64):
                 if (b, n, dtype) not in refs:
                     # the rows and weights the mesh's padding gives
@@ -3547,16 +3582,19 @@ def parallel_train(dev, card, meshes):
                     w = None if n == b else (idx == torch.arange(
                         n, device=dev)).to(dtype)
                     refs[b, n, dtype] = parallel_step(
-                        dev, None, x[idx], y[idx], w, dtype)[:2]
+                        dev, None, x[idx], y[idx], w, dtype,
+                        dropout=drop)[:2]
                 loss0, grad0 = refs[b, n, dtype]
-                loss, grad, _ = parallel_step(dev, mesh, x, y, None, dtype)
+                loss, grad, _ = parallel_step(dev, mesh, x, y, None, dtype,
+                                              dropout=drop)
                 rel_loss = abs(loss - loss0) / abs(loss0)
                 rel_grad = float((grad - grad0).norm() / grad0.norm())
                 bits = 64 if dtype == torch.float64 else 32
                 worst["loss"] = max(worst["loss"], rel_loss)
                 worst[f"grad{bits}"] = max(worst[f"grad{bits}"], rel_grad)
                 print(f"[parallel] exp180d step, batch {b} on {name} "
-                      f"{mesh.shape} (padded to {n}), float{bits}: loss "
+                      f"{mesh.shape} (padded to {n}; dropout "
+                      f"{'on' if drop else 'off'}), float{bits}: loss "
                       f"{loss:.7f} vs one device {loss0:.7f}, rel "
                       f"{rel_loss:.2e} (<= {PARALLEL_LOSS_RTOL:g}); all "
                       f"gradients rel L2 {rel_grad:.2e}" + (
@@ -3569,8 +3607,58 @@ def parallel_train(dev, card, meshes):
     return worst
 
 
+def parallel_padded_dropout(dev, card, mesh):
+    """Phase 14b: CNN:M (exp126c: no BatchNorm, no cross-batch
+    attention; dropout on) at batch 5 on ``mesh`` (padded to 8 with loss
+    weight 0) against the unpadded one-device step: the mesh step draws
+    the 5 real rows' masks, so the losses are equal (rel 1e-5), as the
+    JAX package's padded step is; returns the gap."""
+    import torch
+
+    from multipitch_architectures_tpu_torch.data import FileSpec, TrainPipeline
+
+    name = ZOO[0][0]
+    pipeline = TrainPipeline([FileSpec(*synth_file(600, seed=SEED + 14))],
+                             device=dev)
+    x, y = next(pipeline.batches(SEED, PADDED_BATCH, shuffle=False))
+    loss0 = parallel_step(dev, None, x, y, None, torch.float32,
+                          name=name)[0]
+    loss = parallel_step(dev, mesh, x, y, None, torch.float32, name=name)[0]
+    rel = abs(loss - loss0) / abs(loss0)
+    n = PADDED_BATCH + (-PADDED_BATCH) % mesh.size
+    print(f"[parallel] CNN:M step, batch {PADDED_BATCH} on {mesh.shape} "
+          f"(padded to {n}), dropout on: loss {loss:.7f} vs the unpadded "
+          f"one-device step {loss0:.7f}, rel {rel:.2e} (<= "
+          f"{PARALLEL_LOSS_RTOL:g})")
+    if not rel <= PARALLEL_LOSS_RTOL:
+        raise AssertionError("the padded step's dropout differs from the "
+                             "unpadded step's")
+    return rel
+
+
+def parallel_default(dev):
+    """Phase 14c: ``Trainer(model, cfg)`` with neither a device nor a
+    mesh spans the visible cards: the one-device step on one card, a
+    ``data`` mesh of all of them on several; returns the path."""
+    import torch
+
+    from multipitch_architectures_tpu_torch.train import TrainConfig, Trainer
+
+    n_cards = torch.cuda.device_count()
+    trainer = Trainer(train_model(ZOO[0][0]), TrainConfig())
+    path = ("the one-device step on " + str(trainer.device)
+            if trainer.mesh is None else
+            f"data-parallel over {trainer.mesh.shape}")
+    print(f"[parallel] Trainer(model, cfg) with {n_cards} visible card(s): "
+          f"{path}")
+    if (trainer.mesh is None) != (n_cards == 1) or (
+            trainer.mesh is not None and trainer.mesh.size != n_cards):
+        raise AssertionError("the default device set is not every card")
+    return path
+
+
 def parallel_timing(dev, card, meshes):
-    """Phase 14b: ms per exp180d ``train_step`` at batch 24 on one device
+    """Phase 14d: ms per exp180d ``train_step`` at batch 24 on one device
     and on each mesh, ``deterministic`` on and off (CUDA events)."""
     import dataclasses
 
@@ -3602,7 +3690,7 @@ def parallel_timing(dev, card, meshes):
 
 
 def parallel_serving(dev, card, mesh):
-    """Phase 14c: a 10-s exp180e request (HCQT on K1, ``cross_batch:50``)
+    """Phase 14e: a 10-s exp180e request (HCQT on K1, ``cross_batch:50``)
     through ``predict_framewise_sharded`` on the logical data mesh, per
     device batches of 250 (the request's 431 windows are all tail) and
     100 (a super-batch of 400, a tail of 31), against
@@ -3661,7 +3749,7 @@ def parallel_serving(dev, card, mesh):
 
 
 def parallel_runner(dev, card, mesh):
-    """Phase 14d: one ``run_experiment`` test phase of exp180d (seeded
+    """Phase 14f: one ``run_experiment`` test phase of exp180d (seeded
     weights, synthetic files) on the logical data mesh against
     the same run on one device: every stored prediction within 2e-5."""
     import logging
@@ -3715,10 +3803,188 @@ def phase_parallel(dev, card):
     for name, mesh in meshes:
         print(f"[parallel] mesh {name}: {mesh}")
     out = {"train": parallel_train(dev, card, meshes)}
+    out["padded_dropout"] = parallel_padded_dropout(dev, card, meshes[1][1])
+    out["default"] = parallel_default(dev)
     out["times"] = parallel_timing(dev, card, meshes)
     launches, out["serving_gap"] = parallel_serving(dev, card, meshes[1][1])
     out["runner_gap"] = parallel_runner(dev, card, meshes[1][1])
     return launches, out
+
+
+PREDICT_SECONDS = 10.0
+PREDICT_BATCH = 50                # the CLI's default, the example's
+PREDICT_TOL = 1e-5                # the CLI against the same calls in-process
+PREDICT_INT8_TOL = 1e-6
+PREDICT_CLI = "multipitch_architectures_tpu_torch.experiments.predict"
+# the example's frontend, written out here apart from the CLI's
+PREDICT_HCQT = dict(fs=FS, fs_hcqt_target=50, bins_per_octave=36,
+                    num_octaves=6)
+
+
+def predict_checkpoint(name, path):
+    """Registry entry ``name``'s model at full width with the weights the
+    JAX package's ``model.init`` draws (seeded), saved at ``path`` as a
+    bare ``state_dict`` (the reference's key layout): (the model in eval
+    mode, the CLI's ``--checkpoint``, ``--model`` and ``--model-args``)."""
+    import torch
+
+    from multipitch_architectures_tpu_torch.experiments import load_experiment
+    from multipitch_architectures_tpu_torch.models import init_parameters_flax
+
+    cfg = load_experiment(name)
+    model = cfg.build_model()
+    init_parameters_flax(model, torch.Generator().manual_seed(SEED))
+    torch.save(model.state_dict(), path)
+    return model.eval(), ["--checkpoint", path, "--model", cfg.model_class,
+                          "--model-args", json.dumps(cfg.model_kwargs)]
+
+
+def predict_request(argv, out):
+    """One request through the CLI's ``main`` in this process: (the
+    prediction, the polyphony logits or None, wall ms, K1 launches, K2/K3
+    launches), the counts set to 0 just before and read just after."""
+    import torch
+
+    from multipitch_architectures_tpu_torch.experiments import predict
+    from multipitch_architectures_tpu_torch.ops.cqt_octave import cqt_octaves
+    from multipitch_architectures_tpu_torch.ops.int8_gemm import (
+        int8_conv2d_dequant)
+
+    torch.cuda.synchronize()
+    int8_conv2d_dequant.launches = cqt_octaves.launches = 0
+    t0 = time.perf_counter()
+    if predict.main(argv + ["--out", out]) != 0:
+        raise RuntimeError(f"the predict CLI failed on {argv}")
+    ms = (time.perf_counter() - t0) * 1e3
+    k1, k23 = cqt_octaves.launches, int8_conv2d_dequant.launches
+    poly = out.replace(".npy", "_polyphony.npy")
+    return (np.load(out), np.load(poly) if os.path.exists(poly) else None,
+            ms, k1, k23)
+
+
+def predict_check(what, got, want, tol, card, ms, k1, k23):
+    gap = float(np.abs(got - want).max())
+    ok = got.shape == want.shape and bool(np.isfinite(got).all()) and \
+        gap <= tol
+    print(f"[predict] {what}: {got.shape}, max abs gap {gap:.2e} (<= "
+          f"{tol:g}); {ms:.1f} ms wall (host clock, the card synchronised); "
+          f"K1 launches {k1}, K2/K3 launches {k23}; {card}")
+    if not ok:
+        raise AssertionError(f"predict: {what} differs")
+    return gap
+
+
+def phase_predict(dev, card, tmp):
+    """Phase 15 of the module docstring: returns the K1 and K2/K3
+    launches of the CLI's requests in this process and the worst gap."""
+    import torch
+    from scipy.io import wavfile
+
+    from multipitch_architectures_tpu_torch.dsp import compute_efficient_hcqt
+    from multipitch_architectures_tpu_torch.eval import (
+        predict_framewise, predict_framewise_int8)
+    from multipitch_architectures_tpu_torch.io import load_audio
+    from multipitch_architectures_tpu_torch.ops.int8_gemm import (
+        int8_conv2d_dequant)
+
+    root = os.path.join(tmp, "predict")
+    os.makedirs(root, exist_ok=True)
+    rng = np.random.RandomState(SEED + 15)
+    wav = os.path.join(root, "request.wav")
+    y = synth(note_events(rng, PREDICT_SECONDS, 3), PREDICT_SECONDS, FS, dev,
+              seed=SEED + 15)
+    wavfile.write(wav, FS, y[:, 0].astype(np.float32))
+    model, args = predict_checkpoint(EXPERIMENT, os.path.join(root, "xl.pt"))
+    model.to(dev)
+    k1 = k23 = 0
+    worst = 0.0
+
+    # (a) --audio against the same calls in this process
+    got_a, _, ms, n1, n23 = predict_request(args + ["--audio", wav],
+                                            os.path.join(root, "a.npy"))
+    k1, k23 = k1 + n1, k23 + n23
+    f, _, _ = compute_efficient_hcqt(load_audio(wav, FS), device=dev,
+                                     **PREDICT_HCQT)
+    x = torch.from_numpy(np.ascontiguousarray(f.transpose(2, 1, 0))).to(dev)
+    with torch.no_grad():
+        want = predict_framewise(model, x, batch_size=PREDICT_BATCH)
+    worst = max(worst, predict_check(
+        f"(a) exp180e --audio {PREDICT_SECONDS:g} s vs compute_efficient_hcqt"
+        f" + predict_framewise", got_a, want.cpu().numpy(), PREDICT_TOL,
+        card, ms, n1, n23))
+    if got_a.shape != (frames(PREDICT_SECONDS), 72) or n1 != 1:
+        raise AssertionError("predict: --audio is not one HCQT of the "
+                             "request's frames")
+
+    # (b) --hcqt on (a)'s HCQT in the reference's layout
+    hcqt = os.path.join(root, "request_hcqt.npy")
+    np.save(hcqt, f)
+    got_b, _, ms, n1, n23 = predict_request(args + ["--hcqt", hcqt],
+                                            os.path.join(root, "b.npy"))
+    worst = max(worst, predict_check(
+        "(b) exp180e --hcqt (216, T, 6) vs (a)", got_b, got_a, PREDICT_TOL,
+        card, ms, n1, n23))
+
+    # (c) --int8 against predict_framewise_int8 in this process
+    got_c, _, ms, n1, n23 = predict_request(
+        args + ["--hcqt", hcqt, "--int8"], os.path.join(root, "c.npy"))
+    k23 += n23
+    int8_conv2d_dequant.launches = 0
+    with torch.no_grad():
+        want = predict_framewise_int8(model, x, batch_size=PREDICT_BATCH)
+    if int8_conv2d_dequant.launches != n23 or not n23:
+        raise AssertionError(f"predict: {n23} K2/K3 launches through the "
+                             f"CLI, {int8_conv2d_dequant.launches} in "
+                             f"process")
+    worst = max(worst, predict_check(
+        "(c) exp180e --hcqt --int8 vs predict_framewise_int8", got_c,
+        want.cpu().numpy(), PREDICT_INT8_TOL, card, ms, n1, n23))
+    del model
+
+    # (d) PUnet:XL --audio: its polyphony logits
+    punet, pargs = predict_checkpoint(ZOO_PUNET, os.path.join(root, "p.pt"))
+    punet.to(dev)
+    out_d = os.path.join(root, "d.npy")
+    got_d, poly, ms, n1, n23 = predict_request(pargs + ["--audio", wav],
+                                               out_d)
+    k1 += n1
+    with torch.no_grad():
+        want, aux = predict_framewise(punet, x, batch_size=PREDICT_BATCH,
+                                      return_aux=True)
+    worst = max(worst, predict_check(
+        "(d) PUnet:XL --audio vs predict_framewise(return_aux=True)", got_d,
+        want.cpu().numpy(), PREDICT_TOL, card, ms, n1, n23))
+    if poly is None or poly.shape != (got_d.shape[0], 24):
+        raise AssertionError("predict: no (T, 24) _polyphony.npy")
+    worst = max(worst, predict_check(
+        "(d) PUnet:XL _polyphony.npy vs the aux output", poly,
+        aux.cpu().numpy(), PREDICT_TOL, card, ms, n1, n23))
+    del punet
+
+    # (a) again, in a fresh process
+    out_f = os.path.join(root, "fresh.npy")
+    t0 = time.perf_counter()
+    child = subprocess.run(
+        [sys.executable, "-m", PREDICT_CLI] + args + ["--audio", wav,
+                                                      "--out", out_f],
+        capture_output=True, text=True, timeout=300,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    wall = time.perf_counter() - t0
+    if child.returncode:
+        raise RuntimeError(f"the predict CLI's process failed:\n"
+                           f"{child.stderr[-4000:]}")
+    request_ms = float(child.stdout.strip().splitlines()[-1].split(" in ")[-1]
+                       .split()[0])
+    gap = float(np.abs(np.load(out_f) - got_a).max())
+    worst = max(worst, gap)
+    print(f"[predict] `python -m {PREDICT_CLI} --audio` in a fresh process: "
+          f"{wall:.2f} s wall, of which the request {request_ms:.1f} ms and "
+          f"start-up (imports, the CQT kernel's build or load) "
+          f"{wall - request_ms / 1e3:.2f} s; max abs gap to (a) {gap:.2e} "
+          f"(<= {PREDICT_TOL:g}); {card}")
+    if gap > PREDICT_TOL:
+        raise AssertionError("predict: the fresh process differs from (a)")
+    return k1, k23, worst
 
 
 def main():
@@ -3770,7 +4036,7 @@ def main():
 
 
 def run_phases(dev, card, procs, lap, tmp):
-    """Phases 2-14; returns the kernels' launches on the main paths and
+    """Phases 2-15; returns the kernels' launches on the main paths and
     their measurements."""
     phase_build()
     lap("device and build")
@@ -3852,9 +4118,15 @@ def run_phases(dev, card, procs, lap, tmp):
           f"times (the collectives are device copies and sums: no kernel of "
           f"their own)")
     lap("parallel")
+
+    predict_cqt, predict_gemm, _ = phase_predict(dev, card, tmp)
+    print(f"[predict] the predict CLI's requests in this process launched "
+          f"the CQT kernel {predict_cqt} times (once per --audio request) "
+          f"and the int8 GEMM {predict_gemm} times (the --int8 request)")
+    lap("predict")
     return (cqt_launches + zoo_launches + audio_launches + serving2_cqt
-            + zoo2_cqt + parallel_cqt, cqt,
-            gemm_launches + serving2_gemm + zoo2_gemm, gemm)
+            + zoo2_cqt + parallel_cqt + predict_cqt, cqt,
+            gemm_launches + serving2_gemm + zoo2_gemm + predict_gemm, gemm)
 
 
 if __name__ == "__main__":

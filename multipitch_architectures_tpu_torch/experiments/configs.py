@@ -98,6 +98,18 @@ def build_model(model_class: str, model_kwargs: dict, **overrides):
     return cls(**{**kwargs, **overrides})
 
 
+def load_checkpoint(model, path: str):
+    """Load the weights at ``path`` into ``model`` with ``strict=True``
+    and return it: a reference ``state_dict`` ``.pt`` (the port's modules
+    carry the reference's key names) or the port trainer's checkpoint
+    (its ``"model"`` entry)."""
+    import torch
+
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    model.load_state_dict(sd.get("model", sd), strict=True)
+    return model
+
+
 @dataclass
 class ExperimentConfig:
     name: str

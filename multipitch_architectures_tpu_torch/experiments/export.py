@@ -47,7 +47,7 @@ def _model(args):
     import torch
 
     from .. import models
-    from .configs import load_experiment
+    from .configs import load_checkpoint, load_experiment
 
     if bool(args.config) == bool(args.model):
         sys.exit("give --config or --model (with --model-args), not both")
@@ -62,9 +62,7 @@ def _model(args):
         model = getattr(models, args.model)(**kwargs, **overrides)
         name = args.model
     if args.checkpoint:
-        sd = torch.load(args.checkpoint, map_location="cpu",
-                        weights_only=True)
-        model.load_state_dict(sd.get("model", sd), strict=True)
+        load_checkpoint(model, args.checkpoint)
     else:
         models.init_parameters_flax(model, torch.Generator().manual_seed(0))
     return model.eval(), name

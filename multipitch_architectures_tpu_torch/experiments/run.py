@@ -20,7 +20,11 @@ Examples:
         --chunk-frames 8192 --out-dir runs/
 
 Runs on the card unless ``--cpu`` is given; without a card and without
-``--cpu`` it stops with an error.
+``--cpu`` it stops with an error. On a host with several cards it trains
+data-parallel over all of them, as the JAX package's ``run_experiment``
+does (``Trainer``'s default device set: each batch padded to a multiple
+of the card count, BatchNorm over the global batch); the test phase runs
+on the first card.
 """
 
 import argparse

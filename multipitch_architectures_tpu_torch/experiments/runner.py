@@ -40,6 +40,7 @@ from ..data import FileSpec, TrainPipeline
 from ..eval import (calculate_eval_measures, calculate_mpe_measures_mireval,
                     predict_framewise, predict_framewise_sharded)
 from ..ops.attention import TorchMultiheadAttention
+from ..parallel import default_mesh
 from ..train.trainer import Trainer, _Checkpointer
 from ..utils import model_summary
 from .configs import ExperimentConfig
@@ -252,12 +253,14 @@ def run_experiment(cfg: ExperimentConfig, corpus, out_dir: str,
                    store_results_filewise: bool = True,
                    max_epochs_override: Optional[int] = None,
                    resume: bool = False, device=None, mesh=None) -> Dict:
-    """Run one experiment end to end on ``device`` (the card by default;
-    raises without one unless ``device="cpu"``), or on ``mesh``
+    """Run one experiment end to end on ``device``, or on ``mesh``
     (``parallel.make_mesh``; it implies the device): training sharded
-    over it, and the test phase's windows over its data shards. Returns
-    a results dict with the history and the per-subset measure
-    aggregates.
+    over it, and the test phase's windows over its data shards. With
+    neither, training spans every visible card (``Trainer``'s default,
+    the JAX package's: data-parallel over several, the one-device step
+    on one; it raises without a card) and the test phase runs on the
+    first card, as the JAX runner's does without a mesh. Returns a
+    results dict with the history and the per-subset measure aggregates.
 
     ``corpus`` may be a single corpus (NpyCorpus/AudioCorpus/
     SyntheticCorpus) or a
@@ -268,7 +271,9 @@ def run_experiment(cfg: ExperimentConfig, corpus, out_dir: str,
     state, epoch, lr, metric) and continues from the next epoch,
     deterministically with respect to a straight run.
     """
-    device = resolve_device(mesh.device if mesh is not None and
+    train_mesh = mesh if mesh is not None or device is not None \
+        else default_mesh()
+    device = resolve_device(train_mesh.device if train_mesh is not None and
                             device is None else device)
     if isinstance(corpus, (list, tuple)):
         corpus = _MultiCorpus(list(corpus))
@@ -283,14 +288,15 @@ def run_experiment(cfg: ExperimentConfig, corpus, out_dir: str,
                         ckpt_dir, out_dir)
     model = cfg.build_model()
     logger.info("Model: %d parameters, on %s",
-                sum(p.numel() for p in model.parameters()), device)
+                sum(p.numel() for p in model.parameters()),
+                device if train_mesh is None else train_mesh)
     # the reference's torchinfo summary, at its input (exp180d…py:233)
     logger.info("%s", model_summary(model, (1, 6, 174, 216)))
     tcfg = cfg.train_config
     if max_epochs_override is not None:
         tcfg = dataclasses.replace(tcfg, max_epochs=max_epochs_override)
     trainer = Trainer(model, tcfg, logger=logger, device=device,
-                      mesh=mesh).init()
+                      mesh=train_mesh).init()
 
     test_and_val = list(cfg.test_versions) + list(cfg.val_versions)
     for subset in cfg.extra_test_subsets.values():

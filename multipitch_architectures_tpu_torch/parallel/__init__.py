@@ -20,13 +20,14 @@ scope.
 """
 
 from .mesh import (Mesh, Placement, ShardedTensor, batch_sharding,
-                   make_mesh, replicated, shard_params,
+                   default_mesh, make_mesh, replicated, shard_params,
                    tensor_parallel_param_specs)
 from .spmd import (apply_sharded, gather_rows, reduce_grads, replicate,
                    shard_leaves)
 
 __all__ = [
     "make_mesh",
+    "default_mesh",
     "batch_sharding",
     "replicated",
     "tensor_parallel_param_specs",

@@ -19,7 +19,7 @@ wait at a collective fails the call.
 """
 
 import threading
-from typing import Callable, List, Optional, Sequence
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -93,12 +93,16 @@ class _Rendezvous:
 
 class ShardContext:
     """What a shard's thread knows of its call: the mesh, the cells
-    ``(data, model)`` that run, its own index among them, and the call's
-    meeting points."""
+    ``(data, model)`` that run, its own index among them, the call's
+    meeting points, and ``batch``: None, or ``(real, padded)`` when the
+    global batch of ``padded`` samples is ``real`` samples padded by
+    wrap-around (sample ``real + j`` repeats sample ``j mod real``)."""
 
     def __init__(self, mesh, cells: Sequence, index: int,
-                 rendezvous: _Rendezvous):
+                 rendezvous: _Rendezvous,
+                 batch: Optional[Tuple[int, int]] = None):
         self.mesh, self.cells, self.index = mesh, list(cells), index
+        self.batch = batch
         self.data, self.model = self.cells[index]
         self.device = mesh.devices[self.data, self.model]
         self._rendezvous = rendezvous
@@ -128,12 +132,13 @@ def current() -> Optional[ShardContext]:
     return getattr(_local, "context", None)
 
 
-def run_shards(mesh, cells: Sequence, fn: Callable[[int], object]) -> list:
+def run_shards(mesh, cells: Sequence, fn: Callable[[int], object],
+               batch: Optional[Tuple[int, int]] = None) -> list:
     """``fn(i)`` for each cell ``i`` of ``cells`` (``(data, model)``
     pairs of ``mesh``), each in a thread of its own with its
-    :class:`ShardContext` (inline for a single cell), under the caller's
-    grad mode. Returns the results in cell order; raises the first
-    shard's error."""
+    :class:`ShardContext` (inline for a single cell; ``batch`` as it
+    says), under the caller's grad mode. Returns the results in cell
+    order; raises the first shard's error."""
     cells = list(cells)
     rendezvous = _Rendezvous(len(cells))
     grad = torch.is_grad_enabled()
@@ -141,7 +146,7 @@ def run_shards(mesh, cells: Sequence, fn: Callable[[int], object]) -> list:
 
     def work(i):
         torch.set_grad_enabled(grad)
-        _local.context = ShardContext(mesh, cells, i, rendezvous)
+        _local.context = ShardContext(mesh, cells, i, rendezvous, batch)
         try:
             results[i] = fn(i)
         except BaseException as e:
@@ -254,16 +259,28 @@ def dropout(x, p: float):
     drawn once on the first cell's device by ``F.dropout`` of ones laid
     out as ``x`` and sliced, so that every layout of one global batch,
     one device included, draws the same mask from the same generator
-    state."""
+    state. A batch padded by wrap-around (``ShardContext.batch``) draws
+    the mask of its real rows only, which is what the unpadded batch
+    draws, and each padded row takes its source row's: every later draw
+    then consumes the generator as the unpadded step does, and a padded
+    row stays a copy of its source row. ``x`` holds the same number of
+    rows per sample (a layer may fold other dims into the batch's),
+    sample-major."""
     if p == 0.0:
         return x
     ctx = current()
 
     def draw(values):
         rows = values[0].shape[0]
+        total = rows * ctx.n_data
         first = ctx.mesh.devices[ctx.cells[0]]
-        mask = F.dropout(_ones_laid_out_like(values[0], rows * ctx.n_data,
-                                             first), p, True)
+        real = total
+        if ctx.batch is not None:
+            n, padded = ctx.batch
+            real = total // padded * n
+        mask = F.dropout(_ones_laid_out_like(values[0], real, first), p, True)
+        if real < total:
+            mask = mask[torch.arange(total, device=first) % real]
         return [mask[d * rows:(d + 1) * rows].to(ctx.mesh.devices[d, m])
                 for d, m in ctx.cells]
 

@@ -107,6 +107,16 @@ def make_mesh(n_devices: Optional[int] = None, model_axis: int = 1,
     return Mesh(grid.reshape(len(devs) // model_axis, model_axis))
 
 
+def default_mesh() -> Optional[Mesh]:
+    """The device set that training spans when the caller names none, as
+    the JAX package's ``Trainer`` spans ``jax.devices()``: every visible
+    card on the ``data`` axis when there are several; None for one card
+    or none (the one-device step, which is what a one-device mesh
+    computes, without its shard thread)."""
+    n_cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    return make_mesh() if n_cards > 1 else None
+
+
 class ShardedTensor:
     """A global tensor laid out on a mesh: ``shards`` holds one tensor
     per cell, in ``mesh.devices.flat`` order, each on its cell's device

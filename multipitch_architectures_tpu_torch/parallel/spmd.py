@@ -10,7 +10,8 @@ GSPMD's sharded program keeps them in the JAX package:
 - train-mode BatchNorm normalises by the statistics of the global batch
   (:class:`GlobalBatchNorm2d`), not of the shard;
 - dropout draws the global batch's mask once (:func:`~.collectives.
-  dropout`);
+  dropout`), and a padded batch its real rows' only, each padded row
+  taking its source row's;
 - cross-batch attention gathers keys and values over the data shards
   where its groups straddle them (``ops.attention``);
 - under tensor parallelism, the row-parallel linears (``out_proj``,
@@ -70,7 +71,8 @@ class GlobalBatchNorm2d(nn.BatchNorm2d):
 
 
 class GlobalDropout(nn.Dropout):
-    """A replica's ``nn.Dropout``: the global batch's mask."""
+    """A replica's ``nn.Dropout``: the global batch's mask (the unpadded
+    batch's, on a padded batch)."""
 
     def forward(self, x):
         return dropout(x, self.p) if self.training else x
@@ -198,11 +200,13 @@ def reduce_grads(model: nn.Module, mesh: Mesh,
 
 
 def apply_sharded(replicas: List[nn.Module], mesh: Mesh,
-                  inputs: list) -> list:
+                  inputs: list, rows: Optional[int] = None) -> list:
     """``replicas[i](inputs[i])`` for the cells of :func:`replicate` (all
     of the mesh's, or one per data row), each in its shard's thread
     (:func:`~.collectives.run_shards`), with the card of the cell
-    current. Returns the outputs in cell order."""
+    current. ``rows``: the global batch's real samples when the inputs
+    are those padded by wrap-around (dropout then draws the unpadded
+    batch's masks). Returns the outputs in cell order."""
     cells = mesh.cells(model_axis=len(replicas) == mesh.size)
 
     def run(i):
@@ -212,7 +216,9 @@ def apply_sharded(replicas: List[nn.Module], mesh: Mesh,
                 return replicas[i](inputs[i])
         return replicas[i](inputs[i])
 
-    return run_shards(mesh, cells, run)
+    padded = inputs[0].shape[0] * mesh.shape["data"]
+    batch = None if rows is None or rows == padded else (rows, padded)
+    return run_shards(mesh, cells, run, batch)
 
 
 def gather_rows(outputs: list, mesh: Mesh, device):

@@ -30,12 +30,15 @@ BatchNorm is torch's, as in the reference: its running variance takes
 the unbiased batch variance, where flax's takes the biased one (a factor
 n/(n-1) on each update, n the elements per channel).
 
-On a mesh (``parallel.make_mesh``), as the JAX package's trainer: each
+On a mesh (``parallel.make_mesh``; by default every visible card when
+there are several, as the JAX package's trainer spans all devices), as
+the JAX package's trainer: each
 batch is padded to a multiple of the mesh's device count by repeating
 its leading samples, with loss weight 0 (``_shard``), and split over the
 ``data`` axis; the step runs one replica per cell, each in its thread,
-with BatchNorm statistics, dropout masks and cross-batch attention of
-the global (padded) batch (``parallel.spmd``), the ``model`` axis
+with BatchNorm statistics and cross-batch attention of the global
+(padded) batch and the unpadded batch's dropout masks, each padded row
+taking its source row's (``parallel.spmd``), the ``model`` axis
 splitting the transformer layers' attention and MLPs; the loss is taken
 on the gathered outputs, and the gradients of the replicas' parameters
 sum into the model's on the mesh's first device, where the optimizer
@@ -56,8 +59,8 @@ import torch
 from .. import resolve_device
 from ..data.pipeline import fold_in
 from ..models.layers import init_parameters_flax
-from ..parallel import (apply_sharded, batch_sharding, gather_rows,
-                        reduce_grads, replicate, shard_leaves)
+from ..parallel import (apply_sharded, batch_sharding, default_mesh,
+                        gather_rows, reduce_grads, replicate, shard_leaves)
 from .losses import bce_loss, multitask_bce_ce_loss
 from .monitoring import EarlyStopping
 from .schedulers import (NoamSchedule, ReduceLROnPlateau,
@@ -141,16 +144,22 @@ class Trainer:
             ones.
         config: :class:`TrainConfig`.
         logger: python logger (reference-format epoch lines).
-        device: the card by default (raises without one unless
-            ``device="cpu"``).
-        mesh: an optional ``parallel.Mesh``: the steps run sharded over
-            it (module docstring). It implies the device, its first; a
-            ``device`` that is another raises.
+        device: one device: the steps run unsharded there (raises for
+            the card when there is none).
+        mesh: a ``parallel.Mesh``: the steps run sharded over it (module
+            docstring). It implies the device, its first; a ``device``
+            that is another raises. With neither ``device`` nor ``mesh``
+            the trainer spans every visible card on the ``data`` axis,
+            as the JAX package's ``Trainer`` spans all devices
+            (``parallel.default_mesh``); with one card it runs the
+            one-device step there, and without one it raises.
     """
 
     def __init__(self, model, config: TrainConfig,
                  logger: Optional[logging.Logger] = None, device=None,
                  mesh=None):
+        if mesh is None and device is None:
+            mesh = default_mesh()
         if mesh is not None:
             if device is not None and not _same_device(device, mesh.device):
                 raise ValueError(f"device {device} is not the mesh's first "
@@ -248,7 +257,8 @@ class Trainer:
         xs, ys, ws = self._shard(x, y, w)
         leaves = shard_leaves(self.model, self.mesh)
         replicas = replicate(self.model, self.mesh, params=leaves)
-        out = gather_rows(apply_sharded(replicas, self.mesh, xs.shards),
+        out = gather_rows(apply_sharded(replicas, self.mesh, xs.shards,
+                                        rows=x.shape[0]),
                           self.mesh, self.device)
         return self._loss(out, ys.gather(), ws.gather()), leaves
 

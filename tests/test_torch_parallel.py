@@ -31,6 +31,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 from flax import traverse_util
 from torch import nn
 
@@ -54,10 +55,10 @@ from multipitch_architectures_tpu_torch.models import (
     BasicCnnSegmSigmoid, DoubleConv, SimpleUNetDoubleSelfAttn,
     TransformerEncLayer, init_parameters, state_dict_from_flax)
 from multipitch_architectures_tpu_torch.parallel import (
-    apply_sharded, batch_sharding, gather_rows, make_mesh, reduce_grads,
-    replicate, shard_leaves, tensor_parallel_param_specs)
+    apply_sharded, batch_sharding, default_mesh, gather_rows, make_mesh,
+    reduce_grads, replicate, shard_leaves, tensor_parallel_param_specs)
 from multipitch_architectures_tpu_torch.parallel.collectives import (
-    all_reduce, run_shards)
+    all_reduce, dropout, run_shards)
 from multipitch_architectures_tpu_torch.train import TrainConfig, Trainer
 from multipitch_architectures_tpu_torch.train.trainer import _Checkpointer
 
@@ -133,6 +134,48 @@ def test_make_mesh_raises(kw, error):
         make_mesh(**kw)
 
 
+@pytest.mark.parametrize("n_cards", [0, 1, 2, 4])
+def test_default_mesh_spans_the_visible_cards(monkeypatch, n_cards):
+    """No mesh for no card or one (the one-device step), else every card
+    on the ``data`` axis, as the JAX package's ``Trainer`` spans all
+    devices."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: n_cards > 0)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: n_cards)
+    mesh = default_mesh()
+    if n_cards < 2:
+        assert mesh is None
+    else:
+        assert mesh.shape == {"data": n_cards, "model": 1}
+        assert list(mesh.devices.flat) == [torch.device("cuda", i)
+                                           for i in range(n_cards)]
+
+
+class _Stays(BasicCnnSegmSigmoid):
+    """A model that stays on the CPU wherever it is sent: a trainer on
+    cards that this machine lacks can be built."""
+
+    def to(self, *args, **kwargs):
+        return self
+
+
+@pytest.mark.parametrize("n_cards", [1, 2, 4])
+def test_trainer_without_a_device_spans_the_cards(monkeypatch, n_cards):
+    """``Trainer(model, cfg)`` takes ``default_mesh()``: a ``data=N``
+    mesh of N > 1 cards, the one-device step on one card; an explicit
+    ``device`` keeps one device whatever the count."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: n_cards)
+    trainer = Trainer(_Stays(**CNN), TrainConfig())
+    if n_cards == 1:
+        assert trainer.mesh is None
+        assert trainer.device == torch.device("cuda")
+    else:
+        assert trainer.mesh.shape == {"data": n_cards, "model": 1}
+        assert trainer.device == torch.device("cuda", 0)
+    one = Trainer(BasicCnnSegmSigmoid(**CNN), TrainConfig(), device="cpu")
+    assert one.mesh is None and one.device == torch.device("cpu")
+
+
 def test_trainer_mesh_implies_its_device():
     mesh = cpu_mesh()
     assert Trainer(BasicCnnSegmSigmoid(**CNN), TrainConfig(),
@@ -193,14 +236,12 @@ def test_dp_loss_invariant_to_mesh_size():
 
 def test_dp_uneven_batch_decoupled_model_is_the_unpadded_loss():
     """5 samples on 8 shards pad to 8 with weight 0; a model without
-    batch coupling gives the unpadded batch's loss. Dropout off: torch's
-    generator is sequential, so after a padded batch's first dropout
-    (which draws for 8 rows) the masks differ from an unpadded batch's,
-    where JAX's counter-based keys keep every mask's first rows; the
-    padded step with dropout on equals the one-device step on the padded
-    rows (test_padded_step_is_the_explicitly_padded_one_device_step)."""
+    batch coupling gives the unpadded batch's loss, dropout on, as in
+    the JAX package's tests/test_parallel.py: each dropout draws the 5
+    real rows' mask, as the unpadded step does, and the padded rows take
+    their source rows' masks."""
     batch = _batch(5, seed=1)
-    make = lambda: _no_dropout(BasicCnnSegmSigmoid(**CNN))
+    make = lambda: BasicCnnSegmSigmoid(**CNN)
     loss1, _, _ = _step(make, batch)
     loss8, _, _ = _step(make, batch, cpu_mesh(8))
     assert abs(loss1 - loss8) < 1e-5, (loss1, loss8)
@@ -287,10 +328,12 @@ def test_dp_uneven_batch_coupled_model_matches_jax(jax_mesh8_step):
 def test_padded_step_is_the_explicitly_padded_one_device_step():
     """The semantics the JAX package computes: the mesh step on 5
     samples equals the one-device step on the 8 padded rows with weight
-    0 for the padding, dropout on (one global mask): the loss, and the
-    BatchNorm statistics over the padded count."""
+    0 for the padding: the loss, and the BatchNorm statistics over the
+    padded count. Dropout off on both sides: the mesh step draws the
+    unpadded batch's masks, which the one-device step on 8 rows does not
+    (test_sharded_dropout_of_a_padded_batch_is_the_unpadded_batchs)."""
     x, y = _batch(5, seed=4)
-    make = lambda: SimpleUNetDoubleSelfAttn(**MICRO)
+    make = lambda: _no_dropout(SimpleUNetDoubleSelfAttn(**MICRO))
     idx = torch.tensor([0, 1, 2, 3, 4, 0, 1, 2])
     w = torch.tensor([1.0] * 5 + [0.0] * 3)
     loss1, _, t1 = _step(make, (x[idx], y[idx]), w=w)
@@ -550,6 +593,48 @@ def test_runner_test_phase_shards_over_data_mesh(tmp_path):
         np.testing.assert_allclose(b, np.load(p), atol=2e-5)
 
 
+def test_run_experiment_trains_over_the_default_mesh(tmp_path, monkeypatch):
+    """``run_experiment`` without ``device`` or ``mesh`` trains over
+    ``default_mesh()`` (here 4 CPU shards stand for 4 cards) and runs its
+    test phase on one device, as the JAX runner does without a mesh."""
+    from multipitch_architectures_tpu_torch.experiments import runner
+
+    cfg = shrink_for_smoke(load_experiment(
+        "exp180d_musicnet_unet_extremelylarge_doubleselfattn"))
+    cfg = dataclasses.replace(
+        cfg, test_batch_size=5, train_stride=10,
+        model_kwargs={**cfg.model_kwargs, **MICRO},
+        train_config=dataclasses.replace(cfg.train_config, batch_size=6))
+    trainers = []
+
+    class Recorded(Trainer):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            trainers.append(self)
+
+    mesh = cpu_mesh(4)
+    monkeypatch.setattr(runner, "default_mesh", lambda: mesh)
+    monkeypatch.setattr(runner, "Trainer", Recorded)
+    log = logging.getLogger("default_mesh_run")
+    log.setLevel(logging.INFO)
+    records = []
+
+    class Capture(logging.Handler):
+        def emit(self, r):
+            records.append(r.getMessage())
+
+    log.addHandler(Capture())
+    out = run_experiment(cfg, SyntheticCorpus(cfg, frames=120),
+                         str(tmp_path), logger=log, max_epochs_override=1,
+                         store_predictions=False,
+                         store_results_filewise=False)
+    assert [t.mesh for t in trainers] == [mesh]
+    assert trainers[0].step > 0 and np.isfinite(
+        out["history"]["train_loss"]).all()
+    assert out["subsets"] and not any("Test dispatch sharded" in m
+                                      for m in records)
+
+
 # -- checkpoints ---------------------------------------------------------------
 
 class _Toy(nn.Sequential):
@@ -600,6 +685,32 @@ def test_checkpoint_written_on_a_mesh_loads_on_one_device(tmp_path):
 
 
 # -- the collectives ------------------------------------------------------------
+
+@pytest.mark.parametrize("per_shard", [(1, 3, 4, 5), (3, 2, 7)])
+def test_sharded_dropout_of_a_padded_batch_is_the_unpadded_batchs(per_shard):
+    """5 real samples padded to 8 on 8 shards (one sample each; 3 rows
+    per sample where a layer folds other dims into the batch): the real
+    rows' mask is a one-device ``F.dropout`` of the 5 samples' rows from
+    the same generator state, each padded row's mask is its source
+    row's, and the generator then stands where the unpadded draw leaves
+    it."""
+    mesh = cpu_mesh(8)
+
+    def draw(i):
+        return dropout(torch.ones(per_shard, dtype=torch.float64), 0.5)
+
+    torch.manual_seed(3)
+    masks = torch.cat(run_shards(mesh, mesh.cells(), draw, batch=(5, 8)))
+    after = torch.rand(4)
+    rows = per_shard[0]
+    torch.manual_seed(3)
+    want = F.dropout(torch.ones((5 * rows,) + per_shard[1:],
+                                dtype=torch.float64), 0.5, True)
+    assert torch.equal(after, torch.rand(4))
+    assert torch.equal(masks[:5 * rows], want)
+    for j in range(5 * rows, 8 * rows):
+        assert torch.equal(masks[j], masks[j % (5 * rows)]), j
+    assert 0 < float((want == 0).double().mean()) < 1
 
 def test_a_failing_shard_fails_the_call_without_hanging():
     """One shard raising, or ending before a collective that the others
