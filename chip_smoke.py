@@ -13,8 +13,10 @@ beyond the windowed protocol (shared ``inc``, exported artifacts in
 float32 and int8, percentile calibration, the PUnet's int8 aux head),
 the zoo's other 19 classes, the native window loader and the
 reference-compatible datasets, the device mesh (sharded training,
-serving and test phase) and the pretrained-prediction CLI, in phases,
-and prints each phase's result on its own line:
+serving and test phase), the pretrained-prediction CLI and the other
+CLIs (precompute, run with its profiler trace, export) in fresh
+processes, with what TF32 would cost, in phases, and prints each
+phase's result on its own line:
 
 1. device: requires CUDA, prints the card's name and power limit, and
    sets the float32 parity flags (no TF32);
@@ -262,6 +264,37 @@ and prints each phase's result on its own line:
    then a's request once more in a fresh process, within 1e-5 of a.
    Each request's wall time and the fresh process's start-up are
    printed.
+16. cli: each of the other command-line entry points in a fresh process
+   (``python -m multipitch_architectures_tpu_torch.experiments.<cli>``,
+   which sets the float32 parity flags itself), held against the same
+   command through its ``main`` in this process (run beside it on the
+   card), each child's wall time printed:
+   a. ``precompute`` on phase 10's corpus (6 x 60-s WAVs, one K1 launch
+      per file): its ``hcqt/*.npy`` and ``pitch/*.npy`` equal phase 10's
+      ``precompute.main`` output bit for bit;
+   b. ``run --config exp180d... --epochs 1 --profile DIR`` (SAUnet:L at
+      full width) on a's output cut to each file's first 1325 frames
+      (30.8 s; 2 train, 1 val, 3 test files; at the train stride of 50
+      frames an epoch is 2 steps of 25): its epoch's log line, its
+      checkpoint
+      (weights, optimizer state, validation loss), its results CSV and
+      its prediction files equal ``run.main``'s bit for bit, or else the
+      gaps are printed and the validation loss held to rel 1e-5; and
+      ``DIR/trace.json`` parses and holds CUDA kernel events (counted);
+   c. phase 11's exp180e saved as a state_dict, exported by ``export``
+      (batch 250, group 50) in float32 and in int8 (``--calibrate-hcqt``
+      phase 11's 10-s request, ``--allow-drift``: random weights fail the
+      gate), each artifact served by ``export predict`` on that request:
+      the fresh processes' predictions within 1e-5 (float32, but the
+      tail's last partial group) and 1e-6 (int8) of this process's, and
+      the same worst drift printed;
+   d. what cuDNN's TF32 (torch's default) would do, measured here with
+      the flag on for each measurement only: a corpus file's multirate
+      HCQT (rel-to-peak gap), phase 5's 10-s exp180e request (max abs
+      gap, wall time in turns with float32, 3 repeats each) and the
+      exp180d train step at batch 25 (``deterministic`` off, ms over 20
+      steps by CUDA events, the first step's loss rel gap). Nothing is
+      gated on them.
 
 Each path's kernel launch counts are reset just before its requests and
 read just after. Each phase's seconds are printed at the end. The line
@@ -3987,6 +4020,427 @@ def phase_predict(dev, card, tmp):
     return k1, k23, worst
 
 
+# -- the CLI phase (16): each command-line entry point in a fresh process ----
+
+CLI = "multipitch_architectures_tpu_torch.experiments."
+CLI_CWD = os.path.dirname(os.path.abspath(__file__))   # the children's root
+CLI_TIMEOUT = 600                 # seconds a child may take
+# (b)'s corpus: each file's first 1325 frames (30.8 s), so that at
+# exp180d's context of 75 and train stride of 50 each of the 2 train files
+# gives 25 windows: an epoch of 2 steps of 25
+CLI_FRAMES = 75 + 50 * TRAIN_BATCH
+TF32_REPEATS = 3
+
+
+def cli_child(command, argv):
+    """``python -m <CLI><command> argv`` in a fresh process: (its standard
+    output, its wall seconds). A failed child raises with the tail of its
+    standard error."""
+    t0 = time.perf_counter()
+    child = subprocess.run([sys.executable, "-m", CLI + command, *argv],
+                           capture_output=True, text=True,
+                           timeout=CLI_TIMEOUT, cwd=CLI_CWD)
+    wall = time.perf_counter() - t0
+    if child.returncode:
+        raise RuntimeError(f"`{command} {' '.join(argv[:2])}` in a fresh "
+                           f"process failed:\n{child.stderr[-4000:]}")
+    return child.stdout, wall
+
+
+def cli_main(command, argv):
+    """The same command through its ``main`` in this process: (its
+    standard output, its wall seconds, the card synchronised)."""
+    import contextlib
+    import importlib
+    import io
+
+    import torch
+
+    main = importlib.import_module(CLI + command).main
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        if main(argv) != 0:
+            raise RuntimeError(f"`{command} {' '.join(argv[:2])}` failed")
+    torch.cuda.synchronize()
+    return out.getvalue(), time.perf_counter() - t0
+
+
+def cli_pair(pool, command, child_argv, main_argv):
+    """``command`` in a fresh process (waited on by a thread of ``pool``)
+    while the same command runs through its ``main`` here: ((child
+    output, s), (output here, s))."""
+    child = pool.submit(cli_child, command, child_argv)
+    here = cli_main(command, main_argv)
+    return child.result(), here
+
+
+def tree_gap(a, b):
+    """The largest absolute difference between two checkpoints (nested
+    dicts and lists of tensors and numbers); inf where their structure,
+    shapes or dtypes differ."""
+    import torch
+
+    if isinstance(a, dict):
+        return (max((tree_gap(a[k], b[k]) for k in a), default=0.0)
+                if isinstance(b, dict) and a.keys() == b.keys() else np.inf)
+    if isinstance(a, (list, tuple)):
+        return (max((tree_gap(x, y) for x, y in zip(a, b)), default=0.0)
+                if isinstance(b, (list, tuple)) and len(a) == len(b)
+                else np.inf)
+    if isinstance(a, torch.Tensor):
+        if not (isinstance(b, torch.Tensor) and a.shape == b.shape
+                and a.dtype == b.dtype):
+            return np.inf
+        return float((a.double() - b.double()).abs().max()) \
+            if a.numel() else 0.0
+    return 0.0 if a == b else abs(a - b)
+
+
+def cli_precompute(card, audio_root, root):
+    """16a: the precompute CLI in a fresh process on phase 10's corpus,
+    against phase 10's ``precompute.main`` output, bit for bit. Returns
+    the child's output directory."""
+    out = os.path.join(root, "features")
+    _, wall = cli_child("precompute", [
+        "--audio-dir", os.path.join(audio_root, "audio"), "--csv-dir",
+        os.path.join(audio_root, "csv"), "--out-dir", out])
+    want = os.path.join(audio_root, "features")
+    gaps = {}
+    for sub in ("hcqt", "pitch"):
+        names, wrote = (sorted(os.listdir(os.path.join(d, sub)))
+                        for d in (want, out))
+        if wrote != names:
+            raise AssertionError(f"precompute in a fresh process wrote "
+                                 f"{wrote}, in this process {names}")
+        for fn in names:
+            a, b = (np.load(os.path.join(d, sub, fn)) for d in (out, want))
+            same = a.dtype == b.dtype and a.shape == b.shape
+            gaps[f"{sub}/{fn}"] = (
+                0.0 if same and np.array_equal(a, b) else
+                float(np.abs(a - b).max() / np.abs(b).max()) if same
+                else np.inf)
+    worst = max(gaps, key=gaps.get)
+    if gaps[worst]:
+        raise AssertionError(f"precompute in a fresh process differs from "
+                             f"precompute.main here: {worst} rel-to-peak "
+                             f"{gaps[worst]:.3e}")
+    print(f"[cli] (a) precompute in a fresh process on phase 10's corpus "
+          f"({len(CORPUS_NAMES)} x {CORPUS_SECONDS:.0f}-s WAVs, K1 once per "
+          f"file there): {wall:.2f} s wall; its {len(gaps)} hcqt and pitch "
+          f"arrays equal precompute.main's in this process bit for bit; "
+          f"{card}")
+    return out
+
+
+def cli_corpus(features, root):
+    """16b's corpus: each file of ``features`` cut to its first
+    ``CLI_FRAMES``, in the on-disk layouts (216, T, 6) and (128, T)."""
+    corpus = os.path.join(root, "corpus")
+    n = CLI_FRAMES
+    for sub in ("hcqt", "pitch"):
+        os.makedirs(os.path.join(corpus, sub))
+        for fn in sorted(os.listdir(os.path.join(features, sub))):
+            np.save(os.path.join(corpus, sub, fn), np.ascontiguousarray(
+                np.load(os.path.join(features, sub, fn))[:, :n]))
+    return corpus
+
+
+def run_record(out):
+    """What one run of ``run --out-dir out`` left: its epoch log lines, its
+    checkpoint, its results CSV and its prediction files."""
+    import torch
+
+    name = TRAIN_EXPERIMENT
+    with open(os.path.join(out, "logs", name + ".txt")) as f:
+        epochs = [line.split(" : ", 1)[1].strip() for line in f
+                  if "Epoch #" in line]
+    with open(os.path.join(out, "results_filewise", name + ".csv")) as f:
+        csv = f.read()
+    pred_dir = os.path.join(out, "predictions", name)
+    return dict(epochs=epochs, csv=csv, checkpoint=torch.load(
+        os.path.join(out, "models", name, "best.pt"), map_location="cpu",
+        weights_only=True), predictions={
+            fn: np.load(os.path.join(pred_dir, fn))
+            for fn in sorted(os.listdir(pred_dir))})
+
+
+def cli_run(pool, card, features, root):
+    """16b: exp180d at full width for one epoch on (a)'s output cut to
+    ``CLI_FRAMES``, ``run --profile`` in a fresh process beside
+    ``run.main`` here: the same history and test measures, and a Chrome
+    trace with CUDA kernels."""
+    corpus = cli_corpus(features, root)
+    argv = ["--config", TRAIN_EXPERIMENT, "--data-dir",
+            os.path.join(corpus, "hcqt"), "--annot-dir",
+            os.path.join(corpus, "pitch"), "--epochs", "1"]
+    outs = [os.path.join(root, d) for d in ("run_child", "run_here")]
+    prof = os.path.join(root, "profile")
+    (_, child_s), (_, here_s) = cli_pair(
+        pool, "run", argv + ["--out-dir", outs[0], "--profile", prof],
+        argv + ["--out-dir", outs[1]])
+    got, want = (run_record(o) for o in outs)
+    steps = want["checkpoint"]["step"]
+    if len(want["epochs"]) != 1 or len(got["epochs"]) != 1 or not steps or \
+            got["predictions"].keys() != want["predictions"].keys():
+        raise AssertionError(f"run: epochs {got['epochs']} in the fresh "
+                             f"process, {want['epochs']} here ({steps} "
+                             f"steps); predictions "
+                             f"{list(got['predictions'])} and "
+                             f"{list(want['predictions'])}")
+    ckpt_gap = tree_gap(got["checkpoint"], want["checkpoint"])
+    pred_gap = max(float(np.abs(got["predictions"][k]
+                                - want["predictions"][k]).max())
+                   for k in want["predictions"])
+    exact = (ckpt_gap == 0 and pred_gap == 0 and got["csv"] == want["csv"]
+             and got["epochs"] == want["epochs"])
+    loss_rel = abs(got["checkpoint"]["metric"] - want["checkpoint"]["metric"]
+                   ) / abs(want["checkpoint"]["metric"])
+    with open(os.path.join(prof, "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = sum(e.get("cat") == "kernel" for e in events)
+    size = os.path.getsize(os.path.join(prof, "trace.json"))
+    print(f"[cli] (b) run {TRAIN_EXPERIMENT} (full width, 1 epoch; (a)'s "
+          f"{len(CORPUS_NAMES)} files cut to {CLI_FRAMES} frames: 2 train, "
+          f"1 val, 3 test) in a fresh "
+          f"process with --profile: {child_s:.2f} s wall; run.main here "
+          f"{here_s:.2f} s (side by side on the card); {steps} steps, "
+          f"history {got['epochs'][0]!r}; "
+          + ("the checkpoint (weights, optimizer, validation loss), the "
+             "results CSV and the predictions equal bit for bit"
+             if exact else
+             f"NOT bit-equal: checkpoint max abs {ckpt_gap:.3e}, "
+             f"validation loss rel {loss_rel:.3e} (<= {TRAIN_LOSS_RTOL:g}), "
+             f"predictions max abs {pred_gap:.3e}, CSV equal "
+             f"{got['csv'] == want['csv']}, epoch lines {got['epochs']} / "
+             f"{want['epochs']}")
+          + f"; trace.json {size:,} bytes, {len(events):,} events, "
+          f"{kernels:,} CUDA kernel events; {card}")
+    if not exact and not loss_rel <= TRAIN_LOSS_RTOL:
+        raise AssertionError("run: the fresh process's run differs")
+    if not kernels:
+        raise AssertionError("run --profile: no CUDA kernel in the trace")
+
+
+def drift_line(output):
+    """The worst drift that ``export --int8`` printed."""
+    for line in output.splitlines():
+        if line.startswith("int8 drift on verification windows"):
+            return line.split("worst measure ")[1].split()[0]
+    raise AssertionError(f"export --int8 printed no drift: {output!r}")
+
+
+def cli_artifact(argv, artifact, request, pred):
+    """``export <argv> --out artifact``, then ``export predict`` of it on
+    ``request`` into ``pred``, each in a fresh process: (the export's
+    output, its wall seconds, the predict's wall seconds)."""
+    out, export_s = cli_child("export", argv + ["--out", artifact])
+    _, predict_s = cli_child("export", ["predict", "--artifact", artifact,
+                                        "--hcqt", request, "--out", pred])
+    return out, export_s, predict_s
+
+
+def cli_export(pool, dev, card, request, root):
+    """16c: phase 11's exp180e saved as a state_dict, exported in float32
+    and in int8 by ``export`` in fresh processes (one chain of export and
+    predict per mode, both on ``pool``) and through ``export.main`` here,
+    each artifact served by ``export predict`` on ``request`` the same
+    two ways. Returns the model (on the card, eval mode)."""
+    import torch
+
+    from multipitch_architectures_tpu_torch.experiments import load_experiment
+    from multipitch_architectures_tpu_torch.models import init_parameters
+
+    model = load_experiment(EXPERIMENT).build_model(
+        attn_mode=f"cross_batch:{GROUP}")
+    init_parameters(model, torch.Generator().manual_seed(SEED))
+    ckpt = os.path.join(root, "exp180e.pt")
+    torch.save(model.state_dict(), ckpt)
+    base = ["export", "--config", EXPERIMENT, "--checkpoint", ckpt,
+            "--group", str(GROUP), "--batch-size", str(BATCH)]
+    t = np.load(request).shape[1]
+    tail = (t % BATCH) % GROUP
+    modes = (("float32", [], ARTIFACT_TOL),
+             ("int8", ["--int8", "--calibrate-hcqt", request, "--allow-drift"],
+              DEQUANT_TOL))
+
+    def path(mode, side, ext):
+        return os.path.join(root, f"{mode}_{side}{ext}")
+
+    children = {mode: pool.submit(cli_artifact, base + extra,
+                                  path(mode, "child", ".mptpu"), request,
+                                  path(mode, "child", ".npy"))
+                for mode, extra, _ in modes}
+    for mode, extra, tol in modes:
+        out_h, export_h = cli_main("export", base + extra + [
+            "--out", path(mode, "here", ".mptpu")])
+        _, predict_h = cli_main("export", [
+            "predict", "--artifact", path(mode, "here", ".mptpu"), "--hcqt",
+            request, "--out", path(mode, "here", ".npy")])
+        out_c, export_c, predict_c = children[mode].result()
+        got, want = (np.load(path(mode, side, ".npy"))
+                     for side in ("child", "here"))
+        # the float32 artifact's last partial group is padded by duplicates
+        # (phase 11c); the int8 one is held on every frame
+        n = t - tail if mode == "float32" else t
+        gap = float(np.abs(got[:n] - want[:n]).max())
+        rest = (f", the last {tail} "
+                f"{float(np.abs(got[n:] - want[n:]).max()):.3e}"
+                if n < t else "")
+        drift = ""
+        if mode == "int8":
+            drift = (f"; worst drift printed {drift_line(out_c)} in the "
+                     f"fresh process, {drift_line(out_h)} here")
+            if drift_line(out_c) != drift_line(out_h):
+                raise AssertionError(f"export --int8{drift}")
+        print(f"[cli] (c) export {mode} (batch {BATCH}, group {GROUP}) in a "
+              f"fresh process {export_c:.2f} s wall, export.main here "
+              f"{export_h:.2f} s; export predict on the {t}-frame request in"
+              f" a fresh process {predict_c:.2f} s, here {predict_h:.2f} s "
+              f"(the two modes' children side by side); the fresh "
+              f"process's prediction {got.shape} within {gap:.3e} of this "
+              f"process's over {n} frames (<= {tol:g}){rest}{drift}; {card}")
+        if got.shape != want.shape or not gap <= tol:
+            raise AssertionError(f"export {mode}: the fresh process's "
+                                 f"artifact predicts otherwise")
+    return model.to(dev).eval()
+
+
+class tf32_on:
+    """``torch.backends.cudnn.allow_tf32`` on inside the block, restored
+    after it: torch's default, which the CLIs turn off."""
+
+    def __enter__(self):
+        import torch
+
+        self.before = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = True
+
+    def __exit__(self, *exc):
+        import torch
+
+        torch.backends.cudnn.allow_tf32 = self.before
+        return False
+
+
+def tf32_cost(dev, card, model, wav):
+    """16d: what cuDNN's TF32 does on this card, measured here with the
+    flag on for each measurement only: a corpus file's HCQT, phase 5's
+    10-s exp180e request and the exp180d train step. Returns the
+    numbers."""
+    import contextlib
+    import dataclasses
+    import itertools
+
+    import torch
+
+    from multipitch_architectures_tpu_torch.data import FileSpec, TrainPipeline
+    from multipitch_architectures_tpu_torch.dsp import (compute_efficient_hcqt,
+                                                        hcqt)
+    from multipitch_architectures_tpu_torch.eval import predict_framewise
+    from multipitch_architectures_tpu_torch.experiments import load_experiment
+    from multipitch_architectures_tpu_torch.io import load_audio
+    from multipitch_architectures_tpu_torch.train import Trainer
+
+    modes = (("float32", contextlib.nullcontext), ("tf32", tf32_on))
+    out = {}
+    y = load_audio(wav, FS)
+    feats = {}
+    for name, ctx in modes:
+        with ctx():
+            feats[name] = compute_efficient_hcqt(y, device=dev,
+                                                 **PREDICT_HCQT)[0]
+    out["hcqt_rel"] = float(np.abs(feats["tf32"] - feats["float32"]).max()
+                            / np.abs(feats["float32"]).max())
+
+    y = audio(REQUEST_SECONDS[0], SEED)          # phase 5's 10-s request
+
+    def request():
+        f = hcqt(y, device=dev, **HCQT_KW)[0]
+        return predict_framewise(model, f, batch_size=BATCH, group=GROUP)
+
+    preds, ms = {}, {name: [] for name, _ in modes}
+    for name, ctx in modes:
+        with ctx():
+            preds[name] = request()                          # warm-ups
+    for _ in range(TF32_REPEATS):
+        for name, ctx in modes:
+            with ctx():
+                ms[name].append(timed_request(request)[1] * 1e3)
+    out["request_gap"] = float((preds["tf32"] - preds["float32"]).abs().max())
+    out["request_ms"] = ms
+
+    cfg = load_experiment(TRAIN_EXPERIMENT)
+    tc = dataclasses.replace(cfg.train_config, deterministic=False)
+    pipeline = TrainPipeline([FileSpec(*synth_file(1200, seed=20 + s))
+                              for s in range(3)], context=cfg.context,
+                             stride=cfg.train_stride, augment=cfg.augment,
+                             device=dev)
+    batches = list(itertools.islice(pipeline.batches(SEED, tc.batch_size),
+                                    TIMED_STEPS + 3))
+    loss, step_ms = {}, {}
+    for name, ctx in modes:
+        trainer = Trainer(cfg.build_model(), tc, device=dev).init()
+        step_i = itertools.count()
+
+        def step():
+            trainer.train_step(*batches[next(step_i) % len(batches)])
+
+        with ctx():
+            torch.manual_seed(SEED)
+            loss[name] = float(trainer.train_step(*batches[0]))
+            step_ms[name] = cuda_ms(step, reps=TIMED_STEPS, warmup=3)
+        del trainer
+    out["loss_rel"] = abs(loss["tf32"] - loss["float32"]) / abs(
+        loss["float32"])
+    out["step_ms"] = step_ms
+    f32, tf = (np.mean(ms[k]) for k in ("float32", "tf32"))
+    print(f"[cli] (d) cuDNN TF32 on, against the float32 the CLIs now run "
+          f"(measured in this process, the flag on for each measurement "
+          f"only): {os.path.basename(wav)}'s multirate HCQT rel-to-peak "
+          f"{out['hcqt_rel']:.3e} from float32; exp180e's "
+          f"{REQUEST_SECONDS[0]:g}-s request (batch {BATCH}, group {GROUP}) "
+          f"max abs {out['request_gap']:.3e}, wall "
+          f"{', '.join(f'{v:.1f}' for v in ms['tf32'])} ms in TF32 against "
+          f"{', '.join(f'{v:.1f}' for v in ms['float32'])} ms in float32 "
+          f"({100 * (tf / f32 - 1):+.1f} %, in turns); exp180d train_step at "
+          f"batch {tc.batch_size} (deterministic off, CUDA events, "
+          f"{TIMED_STEPS} steps after 3 warm-ups) {step_ms['tf32']:.2f} ms in"
+          f" TF32 against {step_ms['float32']:.2f} ms "
+          f"({100 * (step_ms['tf32'] / step_ms['float32'] - 1):+.1f} %), "
+          f"first step's loss rel {out['loss_rel']:.3e}; {card}")
+    return out
+
+
+def phase_cli(dev, card, audio_root, request, tmp):
+    """Phase 16 of the module docstring. ``audio_root`` holds phase 10's
+    corpus and its precompute output; ``request`` is phase 11's 10-s
+    request HCQT. Returns the K1 and K2/K3 launches of the CLIs' calls
+    in this process (the children's are not counted here) and (d)'s
+    numbers."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from multipitch_architectures_tpu_torch.ops.cqt_octave import cqt_octaves
+    from multipitch_architectures_tpu_torch.ops.int8_gemm import (
+        int8_conv2d_dequant)
+
+    root = os.path.join(tmp, "cli")
+    os.makedirs(root)
+    features = cli_precompute(card, audio_root, root)
+    int8_conv2d_dequant.launches = cqt_octaves.launches = 0
+    with ThreadPoolExecutor(2) as pool:
+        cli_run(pool, card, features, root)
+        model = cli_export(pool, dev, card, request, root)
+    k1, k23 = cqt_octaves.launches, int8_conv2d_dequant.launches
+    if k1 or not k23:
+        raise AssertionError(f"cli: {k1} K1 and {k23} K2/K3 launches of "
+                             f"the CLIs' calls in this process")
+    wav = os.path.join(audio_root, "audio", CORPUS_NAMES[0] + ".wav")
+    numbers = tf32_cost(dev, card, model, wav)
+    return k1, k23, numbers
+
+
 def main():
     import tempfile
 
@@ -4036,7 +4490,7 @@ def main():
 
 
 def run_phases(dev, card, procs, lap, tmp):
-    """Phases 2-15; returns the kernels' launches on the main paths and
+    """Phases 2-16; returns the kernels' launches on the main paths and
     their measurements."""
     phase_build()
     lap("device and build")
@@ -4124,9 +4578,20 @@ def run_phases(dev, card, procs, lap, tmp):
           f"the CQT kernel {predict_cqt} times (once per --audio request) "
           f"and the int8 GEMM {predict_gemm} times (the --int8 request)")
     lap("predict")
+
+    cli_cqt, cli_gemm, _ = phase_cli(dev, card, audio_root,
+                                     os.path.join(tmp, "request.npy"), tmp)
+    print(f"[cli] the run and export CLIs' calls in this process launched "
+          f"the CQT kernel {cli_cqt} times (no HCQT on their path) and the "
+          f"int8 GEMM {cli_gemm} times (the int8 export's calibration and "
+          f"drift gate, and its artifact's request); the fresh processes' "
+          f"launches (K1 once per file in (a)'s, K2/K3 in (c)'s int8 export "
+          f"and predict) are not counted in this process")
+    lap("cli")
     return (cqt_launches + zoo_launches + audio_launches + serving2_cqt
-            + zoo2_cqt + parallel_cqt + predict_cqt, cqt,
-            gemm_launches + serving2_gemm + zoo2_gemm + predict_gemm, gemm)
+            + zoo2_cqt + parallel_cqt + predict_cqt + cli_cqt, cqt,
+            gemm_launches + serving2_gemm + zoo2_gemm + predict_gemm
+            + cli_gemm, gemm)
 
 
 if __name__ == "__main__":

@@ -28,7 +28,10 @@ Examples:
         --out pred.npy
 
 Both run on the card unless ``--device cpu`` is given; without a card
-and without it they stop with an error.
+and without it they stop with an error. Both run their convolutions and
+matmuls in float32 with TF32 off (``set_f32_parity``), as the parity
+path computes them: the int8 calibration and its drift gate read a
+float32 reference, and a float32 artifact serves float32.
 """
 
 import argparse
@@ -271,6 +274,9 @@ def parser():
 
 def main(argv=None) -> int:
     args = parser().parse_args(argv)
+    from .. import set_f32_parity
+
+    set_f32_parity()          # float32 as the JAX package computes it
     args.fn(args)
     return 0
 

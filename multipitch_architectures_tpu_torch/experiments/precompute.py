@@ -17,6 +17,9 @@ formats via ``--schema``, io.NOTE_EVENT_SCHEMAS), writes:
 ``NpyCorpus(<out>/hcqt, <out>/pitch)`` then loads what
 ``AudioCorpus.load`` computes. The HCQT runs on the card unless ``--cpu``
 is given; without a card and without ``--cpu`` it stops with an error.
+Its convolutions (the HCQT's half-band decimator) and matmuls run in
+float32 with TF32 off (``set_f32_parity``), so that the features it
+writes are the parity path's.
 """
 
 import argparse
@@ -51,9 +54,10 @@ def main(argv=None) -> int:
                     help="run the HCQT on the CPU instead of the card")
     args = ap.parse_args(argv)
 
-    from .. import resolve_device
+    from .. import resolve_device, set_f32_parity
     from .runner import annotation_path, audio_example
 
+    set_f32_parity()          # float32 as the JAX package computes it
     device = resolve_device("cpu" if args.cpu else None)
     for sub in ("hcqt", "pitch"):
         os.makedirs(os.path.join(args.out_dir, sub), exist_ok=True)

@@ -18,16 +18,23 @@ Examples:
         --config exp180d_musicnet_unet_extremelylarge_doubleselfattn \\
         --audio-dir /data/MusicNet/audio --csv-dir /data/MusicNet/csv \\
         --chunk-frames 8192 --out-dir runs/
+    # the same, with a torch.profiler Chrome trace of the run in prof/
+    python -m multipitch_architectures_tpu_torch.experiments.run \\
+        --config exp180d_musicnet_unet_extremelylarge_doubleselfattn \\
+        --data-dir /data/MusicNet/hcqt --annot-dir /data/MusicNet/pitch \\
+        --out-dir runs/ --profile prof/
 
 Runs on the card unless ``--cpu`` is given; without a card and without
 ``--cpu`` it stops with an error. On a host with several cards it trains
 data-parallel over all of them, as the JAX package's ``run_experiment``
 does (``Trainer``'s default device set: each batch padded to a multiple
 of the card count, BatchNorm over the global batch); the test phase runs
-on the first card.
+on the first card. Its convolutions and matmuls run in float32 with
+TF32 off (``set_f32_parity``), as the parity path computes them.
 """
 
 import argparse
+import contextlib
 import sys
 
 
@@ -61,6 +68,10 @@ def main(argv=None) -> int:
     ap.add_argument("--resume", action="store_true",
                     help="restore the experiment checkpoint and continue"
                          " training from the next epoch")
+    ap.add_argument("--profile", metavar="DIR", default=None,
+                    help="write a torch.profiler Chrome trace of the run"
+                         " to DIR/trace.json (Perfetto- or"
+                         " chrome://tracing-loadable)")
     args = ap.parse_args(argv)
     # checked before any file is read or computed
     from ..io import NOTE_EVENT_SCHEMAS
@@ -71,9 +82,13 @@ def main(argv=None) -> int:
     if args.audio_dir and not args.csv_dir:
         ap.error("--csv-dir is required with --audio-dir")
 
+    from .. import set_f32_parity
+    from ..utils import trace
     from . import (AudioCorpus, NpyCorpus, SyntheticCorpus,
                    available_experiments, load_experiment, run_experiment,
                    shrink_for_smoke)
+
+    set_f32_parity()          # float32 as the JAX package computes it
 
     if args.list:
         for name in available_experiments():
@@ -98,9 +113,11 @@ def main(argv=None) -> int:
             ap.error("--data-dir and --annot-dir (or --audio-dir and "
                      "--csv-dir) are required without --smoke")
         corpus = NpyCorpus(args.data_dir, args.annot_dir)
-    results = run_experiment(cfg, corpus, args.out_dir,
-                             max_epochs_override=epochs, resume=args.resume,
-                             device=device)
+    with (trace(args.profile) if args.profile
+          else contextlib.nullcontext()):
+        results = run_experiment(cfg, corpus, args.out_dir,
+                                 max_epochs_override=epochs,
+                                 resume=args.resume, device=device)
     if results.get("subsets"):
         fw = results["subsets"][0]["framewise_mean"]
         print(f"Framewise f_measure: {fw.get('f_measure')}")
