@@ -687,18 +687,20 @@ def phase_kernel(dev, card):
     from multipitch_architectures_tpu_torch.dsp import CqtPlan, cqt
     from multipitch_architectures_tpu_torch.ops.cqt_octave import (
         cqt_octaves, cqt_octaves_launcher, cqt_octaves_reference)
+    from multipitch_architectures_tpu_torch.utils import counters
 
     rng = np.random.RandomState(SEED)
     worst_rel, worst_abs, n_checked = 0.0, 0.0, 0
     for n_frames in (K1_FRAMES, 431, 301):
         work, twin = k1_work_list(dev, rng, n_frames)
-        before = cqt_octaves.launches
+        before = counters["k1.launches"]
         cqt_octaves(work, bpo=BPO)
         cqt_octaves_reference(twin, bpo=BPO)
         torch.cuda.synchronize()
-        if cqt_octaves.launches - before != 1:
-            raise AssertionError(f"{cqt_octaves.launches - before} launches "
-                                 f"for one work list of 21 octaves")
+        if counters["k1.launches"] - before != 1:
+            raise AssertionError(f"{counters['k1.launches'] - before} "
+                                 f"launches for one work list of 21 "
+                                 f"octaves")
         rel, err = k1_errors(work, twin, BPO)
         worst_rel, worst_abs = max(worst_rel, rel), max(worst_abs, err)
         n_checked += len(work)
@@ -769,15 +771,15 @@ def phase_hcqt(dev):
     import torch
 
     from multipitch_architectures_tpu_torch.dsp import hcqt
-    from multipitch_architectures_tpu_torch.ops.cqt_octave import cqt_octaves
+    from multipitch_architectures_tpu_torch.utils import counters
 
     y = audio(BENCH_SECONDS, SEED)
-    before = cqt_octaves.launches
+    before = counters["k1.launches"]
     t0 = time.perf_counter()
     got = hcqt(y, device=dev, **HCQT_KW)[0]
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = cqt_octaves.launches - before
+    launches = counters["k1.launches"] - before
     t0 = time.perf_counter()
     hcqt(y, device=dev, **HCQT_KW)
     torch.cuda.synchronize()
@@ -805,7 +807,7 @@ def phase_serving(dev, card):
     from multipitch_architectures_tpu_torch.eval.inference import _pad_inputs
     from multipitch_architectures_tpu_torch.experiments import load_experiment
     from multipitch_architectures_tpu_torch.models import init_parameters
-    from multipitch_architectures_tpu_torch.ops.cqt_octave import cqt_octaves
+    from multipitch_architectures_tpu_torch.utils import counters
 
     cfg = load_experiment(EXPERIMENT)
     model = cfg.build_model(attn_mode=f"cross_batch:{GROUP}")
@@ -828,9 +830,9 @@ def phase_serving(dev, card):
 
     serve(audio(REQUEST_SECONDS[-1], SEED + 99))      # warm-up, not counted
     requests = [audio(s, SEED + i) for i, s in enumerate(REQUEST_SECONDS)]
-    cqt_octaves.launches = 0
+    counters["k1.launches"] = 0
     results = [serve(y) for y in requests]
-    launches = cqt_octaves.launches
+    launches = counters["k1.launches"]
     for seconds, y, (f, pred, t_hcqt, wall) in zip(REQUEST_SECONDS, requests,
                                                    results):
         t = len(y) // HOP + 1
@@ -1118,9 +1120,9 @@ def phase_int8_serving(dev, card, model, cpu_model):
         calibrate_activation_scales, eligible_convs, predict_framewise,
         predict_framewise_int8, quant, quantize_convs)
     from multipitch_architectures_tpu_torch.eval.inference import _pad_inputs
-    from multipitch_architectures_tpu_torch.ops.cqt_octave import cqt_octaves
     from multipitch_architectures_tpu_torch.ops.int8_gemm import (
-        dequantize_reference, int8_conv2d, int8_conv2d_dequant)
+        dequantize_reference, int8_conv2d)
+    from multipitch_architectures_tpu_torch.utils import counters
 
     n_convs = len(eligible_convs(model))
 
@@ -1145,14 +1147,14 @@ def phase_int8_serving(dev, card, model, cpu_model):
     serve(audio(10.0, SEED + 98), **kw)            # warm-up, not counted
     requests = [audio(s, SEED + 10 + i)
                 for i, s in enumerate(INT8_REQUEST_SECONDS)]
-    int8_conv2d_dequant.launches = cqt_octaves.launches = 0
+    counters["int8.conv_dequant_launches"] = counters["k1.launches"] = 0
     results, peaks = [], []
     for y in requests:
         torch.cuda.reset_peak_memory_stats(dev)
         results.append(serve(y, **kw))
         peaks.append(torch.cuda.max_memory_allocated(dev))
-    launches = int8_conv2d_dequant.launches
-    hcqt_launches = cqt_octaves.launches
+    launches = counters["int8.conv_dequant_launches"]
+    hcqt_launches = counters["k1.launches"]
     want = n_convs * sum(len(int8_batch_sizes(frames(s), BATCH, GROUP, 1))
                          for s in INT8_REQUEST_SECONDS)
     for seconds, y, (f, pred, t_hcqt, wall), peak in zip(
@@ -1215,7 +1217,7 @@ def phase_int8_serving(dev, card, model, cpu_model):
     quant.auto_hybrid_int8 = lambda *a, **k: (
         searches.append(search(*a, **k)) or searches[-1])
     y = audio(GATED_SECONDS, SEED + 20)
-    int8_conv2d_dequant.launches = 0
+    counters["int8.conv_dequant_launches"] = 0
     try:
         _, pred, _, wall = serve(y, batch_size=GATED_BATCH, gate=GATE)
     finally:
@@ -1227,8 +1229,9 @@ def phase_int8_serving(dev, card, model, cpu_model):
           f"{tuple(pred.shape)}: worst drift {report['worst']:.3e} "
           f"({'passed' if report['passed'] else 'FAILED'}), "
           f"{len(policy['exclude'])} of {n_convs} convs demoted to float32 "
-          f"{list(policy['exclude'])}, {int8_conv2d_dequant.launches} int8 "
-          f"GEMM launches, wall {wall:.2f} s")
+          f"{list(policy['exclude'])}, "
+          f"{counters['int8.conv_dequant_launches']} int8 GEMM launches, "
+          f"wall {wall:.2f} s")
 
     # a few windows: each quantized conv of the card's forward fed again
     # on the CPU (teacher-forced), and the whole quantized model on the
@@ -2060,7 +2063,7 @@ def zoo_serve(dev, card, name, paper, count, cpu_out):
     from multipitch_architectures_tpu_torch.dsp import hcqt
     from multipitch_architectures_tpu_torch.eval import (
         predict_dense, predict_dense_chunked, predict_framewise)
-    from multipitch_architectures_tpu_torch.ops.cqt_octave import cqt_octaves
+    from multipitch_architectures_tpu_torch.utils import counters
 
     model, group = zoo_model(name)
     n_params = sum(p.numel() for p in model.parameters())
@@ -2078,13 +2081,13 @@ def zoo_serve(dev, card, name, paper, count, cpu_out):
         torch.cuda.synchronize()
         return f, out, time.perf_counter() - t0
 
-    before = cqt_octaves.launches
+    before = counters["k1.launches"]
     serve(audio(REQUEST_SECONDS[-1], SEED + 99))        # warm-up request
     torch.cuda.reset_peak_memory_stats(dev)
     y = audio(ZOO_SECONDS, SEED + 7)
     f, out, wall = serve(y)
     peak = torch.cuda.max_memory_allocated(dev)
-    launches = cqt_octaves.launches - before
+    launches = counters["k1.launches"] - before
     pred, aux = out if punet else (out, None)
     t = frames(ZOO_SECONDS)
     ok = (pred.shape == (t, 72) and bool(torch.isfinite(pred).all())
@@ -2452,18 +2455,18 @@ def timed_hcqt(dev, y, tuning, **kw):
     import torch
 
     from multipitch_architectures_tpu_torch.dsp import efficient_hcqt_device
-    from multipitch_architectures_tpu_torch.ops.cqt_octave import cqt_octaves
+    from multipitch_architectures_tpu_torch.utils import counters
 
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    before = cqt_octaves.launches
+    before = counters["k1.launches"]
     t0 = time.perf_counter()
     out = efficient_hcqt_device(y, device=dev, tuning=tuning, **HCQT_AUDIO,
                                 **kw)[0]
     torch.cuda.synchronize()
     sec = time.perf_counter() - t0
-    return (out, sec, cqt_octaves.launches - before,
+    return (out, sec, counters["k1.launches"] - before,
             torch.cuda.max_memory_allocated() - base)
 
 
@@ -2593,20 +2596,20 @@ def audio_run(dev, root):
 
     from multipitch_architectures_tpu_torch.experiments import (
         AudioCorpus, NpyCorpus, load_experiment, precompute, run_experiment)
-    from multipitch_architectures_tpu_torch.ops.cqt_octave import cqt_octaves
+    from multipitch_architectures_tpu_torch.utils import counters
 
     cfg = load_experiment(TRAIN_EXPERIMENT)
     cfg = dataclasses.replace(cfg, train_config=dataclasses.replace(
         cfg.train_config, max_train_batches=2))
     audio_dir, csv_dir = (os.path.join(root, d) for d in ("audio", "csv"))
     corpus = AudioCorpus(audio_dir, csv_dir, device=dev)
-    before = cqt_octaves.launches
+    before = counters["k1.launches"]
     t0 = time.perf_counter()
     res = run_experiment(cfg, corpus, os.path.join(root, "run"),
                          logger=logging.getLogger("chip_smoke.audio"),
                          max_epochs_override=1, device=dev)
     sec = time.perf_counter() - t0
-    run_launches = cqt_octaves.launches - before
+    run_launches = counters["k1.launches"] - before
     name = cfg.name
     csv_path = os.path.join(root, "run", "results_filewise", name + ".csv")
     preds = sorted(os.listdir(os.path.join(root, "run", "predictions",
@@ -2630,13 +2633,13 @@ def audio_run(dev, root):
           f"framewise f_measure {fw['f_measure']:.4f}")
 
     out = os.path.join(root, "features")
-    before = cqt_octaves.launches
+    before = counters["k1.launches"]
     t0 = time.perf_counter()
     if precompute.main(["--audio-dir", audio_dir, "--csv-dir", csv_dir,
                         "--out-dir", out]) != 0:
         raise AssertionError("the precompute CLI failed")
     pre_s = time.perf_counter() - t0
-    pre_launches = cqt_octaves.launches - before
+    pre_launches = counters["k1.launches"] - before
     npy = NpyCorpus(os.path.join(out, "hcqt"), os.path.join(out, "pitch"))
     gaps = []
     for fn in corpus.files():
@@ -2659,9 +2662,7 @@ def phase_audio(dev, card, root):
     output (``root/features``, which phase 13 reads) under ``root``.
     Returns the CQT kernel launches of its main path (the run on
     AudioCorpus and the precompute CLI) and the numbers PERF.md keeps."""
-    from multipitch_architectures_tpu_torch.ops.cqt_octave import cqt_octaves
-    from multipitch_architectures_tpu_torch.ops.int8_gemm import (
-        int8_conv2d_dequant)
+    from multipitch_architectures_tpu_torch.utils import counters
 
     out = {}
     t0 = time.perf_counter()
@@ -2674,13 +2675,14 @@ def phase_audio(dev, card, root):
     out.update(audio_long(dev, card))
     out.update(audio_split(dev, root, card))
     # the main path: the counts from 0 just before it, read just after
-    int8_conv2d_dequant.launches = cqt_octaves.launches = 0
+    counters["int8.conv_dequant_launches"] = counters["k1.launches"] = 0
     launches = audio_run(dev, root)
-    if (cqt_octaves.launches != launches
-            or int8_conv2d_dequant.launches):
-        raise AssertionError(f"audio: {cqt_octaves.launches} CQT "
+    if (counters["k1.launches"] != launches
+            or counters["int8.conv_dequant_launches"]):
+        raise AssertionError(f"audio: {counters['k1.launches']} CQT "
                              f"launches counted, {launches} by file; "
-                             f"{int8_conv2d_dequant.launches} int8 GEMM")
+                             f"{counters['int8.conv_dequant_launches']} "
+                             f"int8 GEMM")
     return launches, out
 
 
@@ -2867,18 +2869,17 @@ def serving2_int8(dev, card, model, f, want):
         calibrate_activation_scales, measure_drift, predict_framewise,
         predict_framewise_shared, quantize_convs)
     from multipitch_architectures_tpu_torch.eval.inference import _pad_inputs
-    from multipitch_architectures_tpu_torch.ops.int8_gemm import (
-        int8_conv2d_dequant)
+    from multipitch_architectures_tpu_torch.utils import counters
 
     xp = _pad_inputs(torch.log1p(10.0 * f), 75)
     scales = calibrate_activation_scales(
         model, [gather_windows(xp, 37 + np.arange(BATCH), 75)])
     predict_framewise_shared(model, f, batch_size=BATCH, group=GROUP,
                              activation_scales=scales)         # warm-up
-    int8_conv2d_dequant.launches = 0
+    counters["int8.conv_dequant_launches"] = 0
     got, wall, peak = timed_request(lambda: predict_framewise_shared(
         model, f, batch_size=BATCH, group=GROUP, activation_scales=scales))
-    launches = int8_conv2d_dequant.launches
+    launches = counters["int8.conv_dequant_launches"]
     batches = len(int8_batch_sizes(f.shape[1], BATCH, GROUP, 0))
     if launches != SHARED_INT8_CONVS * batches:
         raise AssertionError(f"shared-inc int8: {launches} K2/K3 launches "
@@ -2959,10 +2960,9 @@ def serving2_int8_artifact(dev, card, model, scales, f):
     from multipitch_architectures_tpu_torch.eval import (eligible_convs,
                                                          quantize_convs)
     from multipitch_architectures_tpu_torch.eval.inference import _pad_inputs
-    from multipitch_architectures_tpu_torch.ops.int8_gemm import (
-        int8_conv2d_dequant)
     from multipitch_architectures_tpu_torch.serve import (
         export_window_forward, load_window_forward)
+    from multipitch_architectures_tpu_torch.utils import counters
 
     q = quantize_convs(model, activation_scales=scales)
     t0 = time.perf_counter()
@@ -2974,9 +2974,9 @@ def serving2_int8_artifact(dev, card, model, scales, f):
     xs = [gather_windows(xp, 37 + b * BATCH + np.arange(BATCH), 75)
           for b in range(2)]
     fn(xs[0])                                               # warm-up
-    int8_conv2d_dequant.launches = 0
+    counters["int8.conv_dequant_launches"] = 0
     got = [fn(x) for x in xs]
-    launches = int8_conv2d_dequant.launches
+    launches = counters["int8.conv_dequant_launches"]
     with torch.no_grad():
         want = [q(x).reshape(BATCH, -1) for x in xs]
     gap = max(float((g - w).abs().max()) for g, w in zip(got, want))
@@ -3003,8 +3003,7 @@ def serving2_options(dev, card, model, f):
         calibrate_activation_scales, eligible_convs, predict_framewise,
         predict_framewise_int8)
     from multipitch_architectures_tpu_torch.eval.inference import _pad_inputs
-    from multipitch_architectures_tpu_torch.ops.int8_gemm import (
-        int8_conv2d_dequant)
+    from multipitch_architectures_tpu_torch.utils import counters
 
     x = gather_windows(_pad_inputs(torch.log1p(10.0 * f), 75),
                        37 + np.arange(BATCH), 75)
@@ -3028,10 +3027,10 @@ def serving2_options(dev, card, model, f):
     pu.eval().to(dev)
     want, want_aux = predict_framewise(pu, f, batch_size=BATCH,
                                        return_aux=True)
-    int8_conv2d_dequant.launches = 0
+    counters["int8.conv_dequant_launches"] = 0
     (got, aux), wall, _ = timed_request(lambda: predict_framewise_int8(
         pu, f, batch_size=BATCH, cal_batches=1, return_aux=True))
-    launches = int8_conv2d_dequant.launches
+    launches = counters["int8.conv_dequant_launches"]
     t = f.shape[1]
     gap = float((aux[:BATCH] - want_aux[:BATCH]).abs().max())
     n_convs = len(eligible_convs(pu))
@@ -3090,16 +3089,16 @@ def phase_serving2(dev, card, tmp):
     from multipitch_architectures_tpu_torch.dsp import hcqt
     from multipitch_architectures_tpu_torch.experiments import load_experiment
     from multipitch_architectures_tpu_torch.models import init_parameters
-    from multipitch_architectures_tpu_torch.ops.cqt_octave import cqt_octaves
+    from multipitch_architectures_tpu_torch.utils import counters
 
     model = load_experiment(EXPERIMENT).build_model(
         attn_mode=f"cross_batch:{GROUP}")
     init_parameters(model, torch.Generator().manual_seed(SEED))
     model.eval().to(dev)
-    cqt_octaves.launches = 0
+    counters["k1.launches"] = 0
     feats = {s: hcqt(audio(s, SEED + 11 + i), device=dev, **HCQT_KW)[0]
              for i, s in enumerate(SHARED_SECONDS)}
-    cqt_launches = cqt_octaves.launches
+    cqt_launches = counters["k1.launches"]
     if cqt_launches != len(feats):
         raise AssertionError(f"{cqt_launches} K1 launches for "
                              f"{len(feats)} HCQTs")
@@ -3186,7 +3185,7 @@ def zoo2_serve(dev, card, name, batch, cpu):
 
     from multipitch_architectures_tpu_torch.dsp import hcqt
     from multipitch_architectures_tpu_torch.eval import predict_framewise
-    from multipitch_architectures_tpu_torch.ops.cqt_octave import cqt_octaves
+    from multipitch_architectures_tpu_torch.utils import counters
 
     model, group = zoo2_model(name)
     n_params = sum(p.numel() for p in model.parameters())
@@ -3201,12 +3200,12 @@ def zoo2_serve(dev, card, name, batch, cpu):
         torch.cuda.synchronize()
         return out, time.perf_counter() - t0
 
-    before = cqt_octaves.launches
+    before = counters["k1.launches"]
     serve(audio(REQUEST_SECONDS[-1], SEED + 99))        # warm-up request
     torch.cuda.reset_peak_memory_stats(dev)
     out, wall = serve(audio(ZOO2_SECONDS, SEED + 7))
     peak = torch.cuda.max_memory_allocated(dev)
-    launches = cqt_octaves.launches - before
+    launches = counters["k1.launches"] - before
     pred, poly = out if aux else (out, None)
     t = frames(ZOO2_SECONDS)
     log_probs = "logsoftmax" in name
@@ -3259,23 +3258,21 @@ def zoo2_int8(dev, card):
     from multipitch_architectures_tpu_torch.eval import (
         eligible_convs, measure_drift, predict_framewise,
         predict_framewise_int8)
-    from multipitch_architectures_tpu_torch.ops.cqt_octave import cqt_octaves
-    from multipitch_architectures_tpu_torch.ops.int8_gemm import (
-        int8_conv2d_dequant)
+    from multipitch_architectures_tpu_torch.utils import counters
 
     model, group = zoo2_model(ZOO2_INT8)
     model.to(dev).eval()
     n_convs = len(eligible_convs(model))
-    before = cqt_octaves.launches
+    before = counters["k1.launches"]
     f = hcqt(audio(ZOO2_INT8_SECONDS, SEED + 12), device=dev, **HCQT_KW)[0]
-    cqt = cqt_octaves.launches - before
+    cqt = counters["k1.launches"] - before
     want = predict_framewise(model, f, batch_size=BATCH, group=group)
     predict_framewise_int8(model, f, batch_size=BATCH, group=group,
                            cal_batches=1)                # warm-up
-    int8_conv2d_dequant.launches = 0
+    counters["int8.conv_dequant_launches"] = 0
     got, wall, peak = timed_request(lambda: predict_framewise_int8(
         model, f, batch_size=BATCH, group=group, cal_batches=1))
-    launches = int8_conv2d_dequant.launches
+    launches = counters["int8.conv_dequant_launches"]
     t = f.shape[1]
     batches = len(int8_batch_sizes(t, BATCH, group, 1))
     span = min(BATCH, t)
@@ -3300,18 +3297,16 @@ def zoo2_int8(dev, card):
 def phase_zoo2(dev, card, procs):
     """Phase 12 (module docstring). Returns (K1 launches, K2/K3 launches)
     of its main path: the 19 classes' requests and the int8 request."""
-    from multipitch_architectures_tpu_torch.ops.cqt_octave import cqt_octaves
-    from multipitch_architectures_tpu_torch.ops.int8_gemm import (
-        int8_conv2d_dequant)
+    from multipitch_architectures_tpu_torch.utils import counters
 
     cpu = zoo_cpu_result(procs, "zoo2_forwards")
-    int8_conv2d_dequant.launches = cqt_octaves.launches = 0
+    counters["int8.conv_dequant_launches"] = counters["k1.launches"] = 0
     k1 = sum(zoo2_serve(dev, card, name, batch, cpu[name])
              for name, _, batch in ZOO2)
-    if cqt_octaves.launches != k1 or int8_conv2d_dequant.launches:
-        raise AssertionError(f"zoo-2: {cqt_octaves.launches} K1 launches "
+    if counters["k1.launches"] != k1 or counters["int8.conv_dequant_launches"]:
+        raise AssertionError(f"zoo-2: {counters['k1.launches']} K1 launches "
                              f"counted, {k1} by request; "
-                             f"{int8_conv2d_dequant.launches} K2/K3")
+                             f"{counters['int8.conv_dequant_launches']} K2/K3")
     int8_k1, k2 = zoo2_int8(dev, card)
     for name in ZOO2_TRAIN:
         zoo_step(dev, card, name, zoo_cpu_result(procs, "zoo2_steps",
@@ -3736,7 +3731,7 @@ def parallel_serving(dev, card, mesh):
         predict_framewise, predict_framewise_sharded)
     from multipitch_architectures_tpu_torch.experiments import load_experiment
     from multipitch_architectures_tpu_torch.models import init_parameters
-    from multipitch_architectures_tpu_torch.ops.cqt_octave import cqt_octaves
+    from multipitch_architectures_tpu_torch.utils import counters
 
     model = load_experiment(EXPERIMENT).build_model(
         attn_mode=f"cross_batch:{GROUP}")
@@ -3751,7 +3746,7 @@ def parallel_serving(dev, card, mesh):
         return out, (time.perf_counter() - t0) * 1e3
 
     y = audio(PARALLEL_SECONDS, SEED + 14)
-    cqt_octaves.launches = 0
+    counters["k1.launches"] = 0
     worst = 0.0
     for per_device in PARALLEL_PER_DEVICE:
         f, hcqt_ms = timed(lambda: hcqt(y, device=dev, **HCQT_KW)[0])
@@ -3775,10 +3770,10 @@ def parallel_serving(dev, card, mesh):
         if not ok:
             raise AssertionError("the sharded request differs from the "
                                  "single-device protocol")
-    if cqt_octaves.launches != len(PARALLEL_PER_DEVICE):
-        raise AssertionError(f"{cqt_octaves.launches} CQT launches in "
+    if counters["k1.launches"] != len(PARALLEL_PER_DEVICE):
+        raise AssertionError(f"{counters['k1.launches']} CQT launches in "
                              f"{len(PARALLEL_PER_DEVICE)} requests")
-    return cqt_octaves.launches, worst
+    return counters["k1.launches"], worst
 
 
 def parallel_runner(dev, card, mesh):
@@ -3879,17 +3874,15 @@ def predict_request(argv, out):
     import torch
 
     from multipitch_architectures_tpu_torch.experiments import predict
-    from multipitch_architectures_tpu_torch.ops.cqt_octave import cqt_octaves
-    from multipitch_architectures_tpu_torch.ops.int8_gemm import (
-        int8_conv2d_dequant)
+    from multipitch_architectures_tpu_torch.utils import counters
 
     torch.cuda.synchronize()
-    int8_conv2d_dequant.launches = cqt_octaves.launches = 0
+    counters["int8.conv_dequant_launches"] = counters["k1.launches"] = 0
     t0 = time.perf_counter()
     if predict.main(argv + ["--out", out]) != 0:
         raise RuntimeError(f"the predict CLI failed on {argv}")
     ms = (time.perf_counter() - t0) * 1e3
-    k1, k23 = cqt_octaves.launches, int8_conv2d_dequant.launches
+    k1, k23 = counters["k1.launches"], counters["int8.conv_dequant_launches"]
     poly = out.replace(".npy", "_polyphony.npy")
     return (np.load(out), np.load(poly) if os.path.exists(poly) else None,
             ms, k1, k23)
@@ -3917,8 +3910,7 @@ def phase_predict(dev, card, tmp):
     from multipitch_architectures_tpu_torch.eval import (
         predict_framewise, predict_framewise_int8)
     from multipitch_architectures_tpu_torch.io import load_audio
-    from multipitch_architectures_tpu_torch.ops.int8_gemm import (
-        int8_conv2d_dequant)
+    from multipitch_architectures_tpu_torch.utils import counters
 
     root = os.path.join(tmp, "predict")
     os.makedirs(root, exist_ok=True)
@@ -3962,13 +3954,13 @@ def phase_predict(dev, card, tmp):
     got_c, _, ms, n1, n23 = predict_request(
         args + ["--hcqt", hcqt, "--int8"], os.path.join(root, "c.npy"))
     k23 += n23
-    int8_conv2d_dequant.launches = 0
+    counters["int8.conv_dequant_launches"] = 0
     with torch.no_grad():
         want = predict_framewise_int8(model, x, batch_size=PREDICT_BATCH)
-    if int8_conv2d_dequant.launches != n23 or not n23:
+    if counters["int8.conv_dequant_launches"] != n23 or not n23:
         raise AssertionError(f"predict: {n23} K2/K3 launches through the "
-                             f"CLI, {int8_conv2d_dequant.launches} in "
-                             f"process")
+                             f"CLI, {counters['int8.conv_dequant_launches']} "
+                             f"in process")
     worst = max(worst, predict_check(
         "(c) exp180e --hcqt --int8 vs predict_framewise_int8", got_c,
         want.cpu().numpy(), PREDICT_INT8_TOL, card, ms, n1, n23))
@@ -4421,18 +4413,16 @@ def phase_cli(dev, card, audio_root, request, tmp):
     numbers."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from multipitch_architectures_tpu_torch.ops.cqt_octave import cqt_octaves
-    from multipitch_architectures_tpu_torch.ops.int8_gemm import (
-        int8_conv2d_dequant)
+    from multipitch_architectures_tpu_torch.utils import counters
 
     root = os.path.join(tmp, "cli")
     os.makedirs(root)
     features = cli_precompute(card, audio_root, root)
-    int8_conv2d_dequant.launches = cqt_octaves.launches = 0
+    counters["int8.conv_dequant_launches"] = counters["k1.launches"] = 0
     with ThreadPoolExecutor(2) as pool:
         cli_run(pool, card, features, root)
         model = cli_export(pool, dev, card, request, root)
-    k1, k23 = cqt_octaves.launches, int8_conv2d_dequant.launches
+    k1, k23 = counters["k1.launches"], counters["int8.conv_dequant_launches"]
     if k1 or not k23:
         raise AssertionError(f"cli: {k1} K1 and {k23} K2/K3 launches of "
                              f"the CLIs' calls in this process")
@@ -4507,28 +4497,29 @@ def run_phases(dev, card, procs, lap, tmp):
     gemm["max_abs_err"] = max(gemm["max_abs_err"], sums_err)
     del model, cpu_model
 
-    from multipitch_architectures_tpu_torch.ops.cqt_octave import cqt_octaves
-    from multipitch_architectures_tpu_torch.ops.int8_gemm import (
-        int8_conv2d_dequant)
+    from multipitch_architectures_tpu_torch.utils import counters
 
-    int8_conv2d_dequant.launches = cqt_octaves.launches = 0
+    counters["int8.conv_dequant_launches"] = counters["k1.launches"] = 0
     train = phase_train(dev, card)
     print(f"[train] the training path launched the CQT kernel "
-          f"{cqt_octaves.launches} times and the int8 GEMM "
-          f"{int8_conv2d_dequant.launches} times: it has no hand-written "
-          f"kernel (its backward runs through autograd and cuDNN)")
+          f"{counters['k1.launches']} times and the int8 GEMM "
+          f"{counters['int8.conv_dequant_launches']} times: it has no "
+          f"hand-written kernel (its backward runs through autograd and "
+          f"cuDNN)")
     lap("train")
 
-    int8_conv2d_dequant.launches = cqt_octaves.launches = 0
+    counters["int8.conv_dequant_launches"] = counters["k1.launches"] = 0
     zoo_launches = phase_zoo(dev, card, procs)
-    if cqt_octaves.launches != zoo_launches or int8_conv2d_dequant.launches:
-        raise AssertionError(f"zoo: {cqt_octaves.launches} CQT launches "
+    if counters["k1.launches"] != zoo_launches \
+            or counters["int8.conv_dequant_launches"]:
+        raise AssertionError(f"zoo: {counters['k1.launches']} CQT launches "
                              f"counted, {zoo_launches} by request; "
-                             f"{int8_conv2d_dequant.launches} int8 GEMM")
+                             f"{counters['int8.conv_dequant_launches']} "
+                             f"int8 GEMM")
     print(f"[zoo] the zoo's {2 * len(ZOO)} requests launched the CQT kernel "
-          f"{cqt_octaves.launches} times (once per request) and the int8 "
-          f"GEMM {int8_conv2d_dequant.launches} times (int8 serving is the "
-          f"SAUnet's)")
+          f"{counters['k1.launches']} times (once per request) and the int8 "
+          f"GEMM {counters['int8.conv_dequant_launches']} times (int8 "
+          f"serving is the SAUnet's)")
     lap("zoo")
 
     audio_root = os.path.join(tmp, "audio")
@@ -4551,22 +4542,24 @@ def run_phases(dev, card, procs, lap, tmp):
           f"quantized conv per int8 batch)")
     lap("zoo-2")
 
-    int8_conv2d_dequant.launches = cqt_octaves.launches = 0
+    counters["int8.conv_dequant_launches"] = counters["k1.launches"] = 0
     phase_loaders(dev, card, os.path.join(audio_root, "features"), train)
-    if cqt_octaves.launches or int8_conv2d_dequant.launches:
-        raise AssertionError(f"loaders: {cqt_octaves.launches} CQT and "
-                             f"{int8_conv2d_dequant.launches} int8 GEMM "
-                             f"launches")
+    if counters["k1.launches"] or counters["int8.conv_dequant_launches"]:
+        raise AssertionError(f"loaders: {counters['k1.launches']} CQT and "
+                             f"{counters['int8.conv_dequant_launches']} "
+                             f"int8 GEMM launches")
     print("[loaders] the loader paths launched no kernel (their work is the "
           "host's and the copies')")
     lap("loaders")
 
-    int8_conv2d_dequant.launches = cqt_octaves.launches = 0
+    counters["int8.conv_dequant_launches"] = counters["k1.launches"] = 0
     parallel_cqt, _ = phase_parallel(dev, card)
-    if cqt_octaves.launches != parallel_cqt or int8_conv2d_dequant.launches:
-        raise AssertionError(f"parallel: {cqt_octaves.launches} CQT "
+    if counters["k1.launches"] != parallel_cqt \
+            or counters["int8.conv_dequant_launches"]:
+        raise AssertionError(f"parallel: {counters['k1.launches']} CQT "
                              f"launches counted, {parallel_cqt} by request; "
-                             f"{int8_conv2d_dequant.launches} int8 GEMM")
+                             f"{counters['int8.conv_dequant_launches']} "
+                             f"int8 GEMM")
     print(f"[parallel] the sharded paths launched the CQT kernel "
           f"{parallel_cqt} times (once per request) and the int8 GEMM 0 "
           f"times (the collectives are device copies and sums: no kernel of "

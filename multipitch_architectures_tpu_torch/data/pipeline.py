@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..utils.profiling import span
 from .augment import AugmentConfig, augment_batch
 from .windows import _gather, gather_targets, window_centers
 
@@ -109,9 +110,11 @@ class TrainPipeline:
         return torch.Generator(device=self.device).manual_seed(seed)
 
     def _make_batch(self, gen, centers):
-        x = _gather(self.inputs, centers, self.context)
-        y = gather_targets(self.targets, centers)
-        return augment_batch(gen, x, y, self.augment, self.context)
+        with span("data.gather"):
+            x = _gather(self.inputs, centers, self.context)
+            y = gather_targets(self.targets, centers)
+        with span("data.augment"):
+            return augment_batch(gen, x, y, self.augment, self.context)
 
     def batches(self, generator_or_seed: Union[int, torch.Generator],
                 batch_size: int, shuffle: bool = True,
@@ -137,8 +140,10 @@ class TrainPipeline:
             order = torch.arange(n, device=self.device)
         stop = (n // batch_size) * batch_size if drop_remainder else n
         for i, start in enumerate(range(0, stop, batch_size)):
-            yield self._make_batch(gen(1, i),
-                                   self.centers[order[start:start + batch_size]])
+            with span("data.batch"):
+                batch = self._make_batch(
+                    gen(1, i), self.centers[order[start:start + batch_size]])
+            yield batch
 
     def all_windows(self, batch_size: int = 256):
         """Every window once, in order (eval); the draws, where the

@@ -18,6 +18,7 @@ import torch
 
 from .. import resolve_device
 from ..ops.cqt_octave import cqt_octaves
+from ..utils.profiling import counters, span
 from .cqt import CqtPlan, as_signal, cqt_chunks, cqt_work_list
 from .tuning import estimate_tuning
 
@@ -44,6 +45,7 @@ def _centered_fmin(fmin, bins_per_octave, center_bins):
 
 @lru_cache(maxsize=32)
 def _plan(fs, hop, fmin, n_bins, bins_per_octave, exact=False):
+    counters["hcqt.plan_builds"] += 1
     return CqtPlan.create(fs, hop, fmin, n_bins, bins_per_octave,
                           exact=exact)
 
@@ -103,11 +105,21 @@ def efficient_hcqt_device(f_audio, fs=22050, fmin=C1_HZ, fs_hcqt_target=91,
     n_bins = bins_per_octave * num_octaves
     harmonics, assignment = _harmonic_layout(num_harmonics, num_subharmonics)
     bases = sorted({b for b, _ in assignment})
-    plans = [_plan(float(fs), int(hopsize_cqt), float(fmin_tuned * base),
-                   int((num_octaves + max(s for b, s in assignment
-                                          if b == base)) * bins_per_octave),
-                   int(bins_per_octave), exact=exact)
-             for base in bases]
+    with span("hcqt.plan"):
+        plans = [_plan(float(fs), int(hopsize_cqt), float(fmin_tuned * base),
+                       int((num_octaves + max(s for b, s in assignment
+                                              if b == base))
+                           * bins_per_octave),
+                       int(bins_per_octave), exact=exact)
+                 for base in bases]
+        if not chunk_frames:
+            # the bases' octaves (9 + 6 + 6 on the serving path), to go
+            # in one launch
+            octaves, outs = [], []
+            for plan in plans:
+                work, out = cqt_work_list(y, plan)
+                octaves += work
+                outs.append(out)
 
     def layout(cqts):
         """(n_harm, T, n_bins) from the bases' (T, bins) CQTs."""
@@ -121,13 +133,8 @@ def efficient_hcqt_device(f_audio, fs=22050, fmin=C1_HZ, fs_hcqt_target=91,
         for c0, c1, cqts in cqt_chunks(y, plans, chunk_frames):
             out[:, c0:c1] = layout(cqts).cpu().numpy()
         return out, fs_hcqt, hopsize_cqt
-    # the bases' octaves (9 + 6 + 6 on the serving path) in one launch
-    octaves, outs = [], []
-    for plan in plans:
-        work, out = cqt_work_list(y, plan)
-        octaves += work
-        outs.append(out)
-    cqt_octaves(octaves, bpo=int(bins_per_octave))
+    with span("hcqt.k1"):
+        cqt_octaves(octaves, bpo=int(bins_per_octave))
     return (layout([out[:, -plan.n_bins:] for plan, out in zip(plans, outs)]),
             fs_hcqt, hopsize_cqt)
 
@@ -148,22 +155,25 @@ def compute_efficient_hcqt(f_audio, fs=22050, fmin=C1_HZ, fs_hcqt_target=91,
     Returns (f_hcqt (n_bins, n_frames, n_harm+n_sub) float32 numpy,
     fs_hcqt, hopsize).
     """
-    dev = resolve_device(device)
-    f_audio = np.asarray(f_audio, np.float32)
-    if tuning is None:
-        tuning = estimate_tuning(f_audio, fs=fs,
-                                 bins_per_octave=bins_per_octave)
-    out, fs_hcqt, hopsize_cqt = efficient_hcqt_device(
-        f_audio, fs=fs, fmin=fmin, fs_hcqt_target=fs_hcqt_target,
-        bins_per_octave=bins_per_octave, num_octaves=num_octaves,
-        num_harmonics=num_harmonics, num_subharmonics=num_subharmonics,
-        center_bins=center_bins, tuning=float(tuning),
-        chunk_frames=chunk_frames, exact=exact, device=dev)
-    if not chunk_frames:
-        out = out.cpu().numpy()
-    # (n_harm, T, F) -> the reference's (F, T, n_harm)
-    return (np.ascontiguousarray(np.transpose(out, (2, 1, 0))), fs_hcqt,
-            hopsize_cqt)
+    with span("hcqt"):
+        dev = resolve_device(device)
+        f_audio = np.asarray(f_audio, np.float32)
+        if tuning is None:
+            with span("hcqt.tuning"):
+                tuning = estimate_tuning(f_audio, fs=fs,
+                                         bins_per_octave=bins_per_octave)
+        out, fs_hcqt, hopsize_cqt = efficient_hcqt_device(
+            f_audio, fs=fs, fmin=fmin, fs_hcqt_target=fs_hcqt_target,
+            bins_per_octave=bins_per_octave, num_octaves=num_octaves,
+            num_harmonics=num_harmonics, num_subharmonics=num_subharmonics,
+            center_bins=center_bins, tuning=float(tuning),
+            chunk_frames=chunk_frames, exact=exact, device=dev)
+        with span("hcqt.copy"):
+            if not chunk_frames:
+                out = out.cpu().numpy()
+            # (n_harm, T, F) -> the reference's (F, T, n_harm)
+            out = np.ascontiguousarray(np.transpose(out, (2, 1, 0)))
+    return out, fs_hcqt, hopsize_cqt
 
 
 def compute_hcqt(f_audio, fs=22050, fmin=C1_HZ, fs_hcqt_target=91,

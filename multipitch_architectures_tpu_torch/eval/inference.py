@@ -26,6 +26,7 @@ import torch.nn.functional as F
 
 from ..data.windows import gather_windows
 from ..parallel import apply_sharded, gather_rows, replicate, replicated
+from ..utils.profiling import counters, span
 
 
 def _pad_inputs(inputs, context):
@@ -93,29 +94,34 @@ def predict_framewise(model, inputs, context=75, batch_size=50,
     if group is not None and batch_size % group:
         raise ValueError(f"batch_size {batch_size} not a multiple of "
                          f"attention group {group}")
-    x = _compressed(inputs, compression)
-    t = x.shape[1]
-    xp = _pad_inputs(x, context)
-    half = context // 2
-    outs, auxs = [], []
-    start = int(start_frame)
-    if not 0 <= start < t:
-        raise ValueError(f"start_frame {start_frame} outside [0, {t})")
-    while start < t:
-        # the tail runs at its natural size: padding it with duplicate
-        # windows would change the real windows' outputs under the
-        # cross-batch attention quirk
-        n = _next_batch_size(t - start, batch_size, group)
-        y = model(gather_windows(xp, half + start + np.arange(n), context))
-        aux = y[1] if isinstance(y, tuple) else None
-        outs.append(_first(y).reshape(n, -1))
+    with span("protocol"):
+        x = _compressed(inputs, compression)
+        t = x.shape[1]
+        xp = _pad_inputs(x, context)
+        half = context // 2
+        outs, auxs = [], []
+        start = int(start_frame)
+        if not 0 <= start < t:
+            raise ValueError(f"start_frame {start_frame} outside [0, {t})")
+        while start < t:
+            # the tail runs at its natural size: padding it with duplicate
+            # windows would change the real windows' outputs under the
+            # cross-batch attention quirk
+            n = _next_batch_size(t - start, batch_size, group)
+            with span("protocol.batch"):
+                y = model(gather_windows(xp, half + start + np.arange(n),
+                                         context))
+            counters["protocol.batches"] += 1
+            counters["protocol.windows"] += n
+            aux = y[1] if isinstance(y, tuple) else None
+            outs.append(_first(y).reshape(n, -1))
+            if return_aux:
+                auxs.append(aux.reshape(n, -1) if aux is not None
+                            else outs[-1].new_zeros((n, 0)))
+            start += n
         if return_aux:
-            auxs.append(aux.reshape(n, -1) if aux is not None
-                        else outs[-1].new_zeros((n, 0)))
-        start += n
-    if return_aux:
-        return torch.cat(outs), torch.cat(auxs)
-    return torch.cat(outs)
+            return torch.cat(outs), torch.cat(auxs)
+        return torch.cat(outs)
 
 
 @torch.no_grad()

@@ -23,6 +23,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from ..utils.profiling import counters
 from . import _build
 
 KC = 32              # the kernel's K chunk: n_fft must be a multiple of it
@@ -179,8 +180,8 @@ def _lib(source: Optional[str] = None) -> ctypes.CDLL:
 def cqt_octaves_launcher(octaves: Sequence[Octave], *, bpo: int):
     """Checks and packs a work list of CUDA tensors once; returns a function
     of no arguments that launches the kernel on the current stream for
-    every ``MAX_ENTRIES`` entries, adding one to ``cqt_octaves.launches``
-    per launch, and raises if a launch fails."""
+    every ``MAX_ENTRIES`` entries, adding one to the counter
+    ``k1.launches`` per launch, and raises if a launch fails."""
     dev = _check(octaves, bpo)
     if dev.type != "cuda":
         raise ValueError(f"no CQT octave kernel for {dev}")
@@ -224,7 +225,7 @@ def cqt_octaves_launcher(octaves: Sequence[Octave], *, bpo: int):
                 if rc != 0:
                     raise RuntimeError(f"cqt_octaves kernel launch failed: "
                                        f"CUDA error {rc}")
-                cqt_octaves.launches += 1
+                counters["k1.launches"] += 1
 
     return launch
 
@@ -243,8 +244,6 @@ def cqt_octaves(octaves: Sequence[Octave], *, bpo: int):
     else:
         cqt_octaves_launcher(octaves, bpo=bpo)()
 
-
-cqt_octaves.launches = 0
 
 
 def cqt_octave_reference(y_padded, kr, *, hop, n_fft, bpo, n_frames):

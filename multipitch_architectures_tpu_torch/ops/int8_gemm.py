@@ -29,6 +29,7 @@ from typing import List, Optional
 import torch
 import torch.nn.functional as F
 
+from ..utils.profiling import counters
 from . import _build
 
 CHANNEL_ALIGN = 16   # the kernel copies 16-byte chunks of one pixel, or
@@ -122,9 +123,9 @@ def int8_mm(a, b):
 
     On the CPU this is :func:`int8_mm_reference`. On the card it launches
     the kernel on the current stream, or raises; each launch adds one to
-    ``int8_mm.launches``. The kernel takes both operands K-contiguous, as
-    the convolution does: B is transposed once, and K is zero-padded to a
-    multiple of 16 where needed.
+    the counter ``int8.mm_launches``. The kernel takes both operands
+    K-contiguous, as the convolution does: B is transposed once, and K is
+    zero-padded to a multiple of 16 where needed.
     """
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
         raise ValueError(f"want A (M, K) and B (K, N), got {tuple(a.shape)} "
@@ -146,7 +147,7 @@ def int8_mm(a, b):
             torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"int8_mm kernel launch failed: CUDA error {rc}")
-    int8_mm.launches += 1
+    counters["int8.mm_launches"] += 1
     return out
 
 
@@ -208,8 +209,8 @@ def int8_conv2d(xq, wq, stride=(1, 1), padding=(0, 0)):
 
     On the CPU this is :func:`int8_conv2d_reference`. On the card it
     launches the kernel on the current stream, or raises; each launch
-    adds one to ``int8_conv2d.launches``. The kernel gathers its A tiles
-    from ``xq`` itself (no im2col buffer); C is zero-padded as
+    adds one to the counter ``int8.conv_launches``. The kernel gathers its
+    A tiles from ``xq`` itself (no im2col buffer); C is zero-padded as
     :func:`pad_channels` says.
     """
     shape = _conv_shape(xq, wq, stride, padding)
@@ -217,7 +218,7 @@ def int8_conv2d(xq, wq, stride=(1, 1), padding=(0, 0)):
         return int8_conv2d_reference(xq, wq, stride, padding)
     out = torch.empty(shape, dtype=torch.int32, device=xq.device)
     _launch_conv("int8_conv2d", xq, wq, stride, padding, out)
-    int8_conv2d.launches += 1
+    counters["int8.conv_launches"] += 1
     return out
 
 
@@ -253,7 +254,7 @@ def _int8_conv2d_dequant_launch(xq, wq, stride, padding, s1, s2, bias):
     _launch_conv("int8_conv2d_dequant", xq, wq, stride, padding, out,
                  s1.data_ptr(), s2.data_ptr(),
                  None if bias is None else bias.data_ptr())
-    int8_conv2d_dequant.launches += 1
+    counters["int8.conv_dequant_launches"] += 1
     return out
 
 
@@ -276,8 +277,8 @@ def int8_conv2d_dequant(xq, wq, stride, padding, s1, s2, bias=None):
     Checks its operands, then calls the operator
     ``torch.ops.mpt_torch.int8_conv2d_dequant``: on the CPU
     :func:`int8_conv2d_dequant_reference`; on the card a launch of the
-    kernel on the current stream, or a raise. Each launch adds one to
-    ``int8_conv2d_dequant.launches``, also from inside an exported
+    kernel on the current stream, or a raise. Each launch adds one to the
+    counter ``int8.conv_dequant_launches``, also from inside an exported
     program.
     """
     shape = _conv_shape(xq, wq, stride, padding)
@@ -288,8 +289,3 @@ def int8_conv2d_dequant(xq, wq, stride, padding, s1, s2, bias=None):
         _check_float(bias, cout, "bias", xq.device)
     return torch.ops.mpt_torch.int8_conv2d_dequant(
         xq, wq, list(stride), list(padding), s1, s2, bias)
-
-
-int8_mm.launches = 0
-int8_conv2d.launches = 0
-int8_conv2d_dequant.launches = 0

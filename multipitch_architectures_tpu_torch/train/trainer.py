@@ -61,6 +61,7 @@ from ..data.pipeline import fold_in
 from ..models.layers import init_parameters_flax
 from ..parallel import (apply_sharded, batch_sharding, default_mesh,
                         gather_rows, reduce_grads, replicate, shard_leaves)
+from ..utils.profiling import span
 from .losses import bce_loss, multitask_bce_ce_loss
 from .monitoring import EarlyStopping
 from .schedulers import (NoamSchedule, ReduceLROnPlateau,
@@ -269,19 +270,23 @@ class Trainer:
         uses and advances batch statistics; on a mesh, of the padded
         global batch). Returns the loss, a 0-d tensor on the device:
         nothing waits for the card."""
-        if self._noam is not None:
-            self.lr = self._noam.update_rate(self.step)
-        for group in self.optimizer.param_groups:
-            group["lr"] = self.lr
-        self.model.train()
-        self.optimizer.zero_grad(set_to_none=True)
-        with _cudnn_deterministic(self.config.deterministic):
-            loss, leaves = self._forward(x, y, w)
-            loss.backward()
-        if leaves is not None:
-            reduce_grads(self.model, self.mesh, leaves)
-        self.optimizer.step()
-        self.step += 1
+        with span("step"):
+            if self._noam is not None:
+                self.lr = self._noam.update_rate(self.step)
+            for group in self.optimizer.param_groups:
+                group["lr"] = self.lr
+            self.model.train()
+            self.optimizer.zero_grad(set_to_none=True)
+            with _cudnn_deterministic(self.config.deterministic):
+                with span("step.forward"):
+                    loss, leaves = self._forward(x, y, w)
+                with span("step.backward"):
+                    loss.backward()
+                    if leaves is not None:
+                        reduce_grads(self.model, self.mesh, leaves)
+            with span("step.optimizer"):
+                self.optimizer.step()
+            self.step += 1
         return loss.detach()
 
     @torch.no_grad()

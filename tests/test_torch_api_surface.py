@@ -9,9 +9,10 @@ exceptions:
   test fails once a listed name exists in the port, so the list shrinks
   with the port and cannot go stale;
 - ``BY_DESIGN``: names with no port: the flax- and optax-only names, the
-  Pallas kernel (its counterpart is ``ops/cqt_octave.py``) and the
+  Pallas kernel (its counterpart is ``ops/cqt_octave.py``), the
   reverse weight porters (their counterpart is
-  ``models.state_dict_from_flax``).
+  ``models.state_dict_from_flax``) and ``StepTimer`` (the port times
+  steps with its recorder's spans, ``utils.span``).
 
 Also: every registry entry builds on the ``meta`` device, and
 ``build_model`` drops no registry model argument but ``n_ch_out``; both
@@ -47,6 +48,8 @@ BY_DESIGN = {
     "eval/__init__.py": _FLAX_INT8,
     "eval/quant.py": _FLAX_INT8,
     "ops/pallas_cqt.py": {"cqt_octave_pallas"},
+    "utils/__init__.py": {"StepTimer"},
+    "utils/profiling.py": {"StepTimer"},
     "models/port.py": {"export_state_dict", "port_basic_cnn",
                        "port_basic_cnn_segm", "port_basic_cnn_segm_blank",
                        "port_deep_cnn_segm_sigmoid",

@@ -11,6 +11,7 @@ from multipitch_architectures_tpu_torch.eval import quant
 from multipitch_architectures_tpu_torch.ops.int8_gemm import (
     int8_conv2d, int8_conv2d_dequant, int8_conv2d_dequant_reference,
     int8_conv2d_reference, pad_channels)
+from multipitch_architectures_tpu_torch.utils import counters
 
 MODES = ["dynamic", "per_tensor", "per_channel"]
 
@@ -134,12 +135,12 @@ def test_dequant_checks_its_arguments(case):
     xq = torch.zeros((1, 4, 4, 16), dtype=torch.int8)
     wq = torch.zeros((4, 3, 3, 16), dtype=torch.int8)
     error, args = _bad_dequant_args()[case]
-    before = int8_conv2d_dequant.launches
+    before = counters["int8.conv_dequant_launches"]
     with pytest.raises(error):
         int8_conv2d_dequant(xq, wq, (1, 1), (1, 1), *args)
     int8_conv2d_dequant(xq, wq, (1, 1), (1, 1), torch.ones(4),
                         torch.tensor(2.0))
-    assert int8_conv2d_dequant.launches == before
+    assert counters["int8.conv_dequant_launches"] == before
 
 
 @pytest.mark.parametrize("cin,padded", [(6, 8), (8, 8), (16, 16), (20, 32)])

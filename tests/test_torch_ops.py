@@ -20,7 +20,8 @@ from multipitch_architectures_tpu_torch.ops import (TorchMultiheadAttention,
                                                     sinusoidal_positional_encoding,
                                                     up_concat_pad)
 from multipitch_architectures_tpu_torch.ops.cqt_octave import (
-    cqt_octave, cqt_octave_reference, cqt_octaves)
+    cqt_octave, cqt_octave_reference)
+from multipitch_architectures_tpu_torch.utils import counters
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -49,11 +50,11 @@ def test_cqt_octave_plain_matches_pallas_kernel(hop, n_fft, bpo, t):
     want = np.asarray(cqt_octave_pallas(
         jnp.asarray(y), jnp.asarray(kr), hop=hop, n_fft=n_fft, bpo=bpo,
         n_frames=t, interpret=True))
-    before = cqt_octaves.launches
+    before = counters["k1.launches"]
     got = cqt_octave(torch.from_numpy(y), torch.from_numpy(kr), hop=hop,
                      n_fft=n_fft, bpo=bpo, n_frames=t)
     assert got.shape == (t, bpo) and got.dtype == torch.float32
-    assert cqt_octaves.launches == before     # CPU tensors: plain version
+    assert counters["k1.launches"] == before     # CPU tensors: plain version
     np.testing.assert_allclose(got.numpy(), want, atol=1e-5)
 
 

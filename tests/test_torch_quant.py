@@ -29,6 +29,7 @@ from multipitch_architectures_tpu_torch.models import (
     SimpleUNetDoubleSelfAttn, state_dict_from_flax, torch_module_name)
 from multipitch_architectures_tpu_torch.ops.int8_gemm import (
     int8_conv2d, int8_conv2d_reference, int8_mm, int8_mm_reference)
+from multipitch_architectures_tpu_torch.utils import counters
 from test_torch_zoo import CASES as ZOO_CASES
 from test_torch_zoo import seeded_variables
 
@@ -117,10 +118,11 @@ def test_int8_wrappers_check_their_arguments():
         int8_mm(x8[0, 0], w8[0, 0])
     with pytest.raises(TypeError):
         int8_mm(x8[0, 0].float(), x8[0, 0].T.float())
-    before = (int8_conv2d.launches, int8_mm.launches)
+    launches = ("int8.conv_launches", "int8.mm_launches")
+    before = [counters[k] for k in launches]
     int8_conv2d(x8, w8, (1, 1), (1, 1))
     int8_mm(x8[0, 0], x8[0, 0].T.contiguous())
-    assert (int8_conv2d.launches, int8_mm.launches) == before
+    assert [counters[k] for k in launches] == before
 
 
 def _capture_jax(monkeypatch, fn, *args):

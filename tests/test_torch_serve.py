@@ -26,11 +26,10 @@ from multipitch_architectures_tpu_torch.eval import (
     calibrate_activation_scales, eligible_convs, predict_framewise,
     quantize_convs)
 from multipitch_architectures_tpu_torch.experiments import export as cli
-from multipitch_architectures_tpu_torch.ops.int8_gemm import (
-    int8_conv2d_dequant)
 from multipitch_architectures_tpu_torch.serve import (
     _MAGIC, export_window_forward, load_window_forward,
     predict_framewise_exported)
+from multipitch_architectures_tpu_torch.utils import counters
 
 TINY = dict(n_chan_layers=(8, 8, 4, 2), n_bins_out=72)
 TINY_ATTN = dict(TINY, scalefac=16, embed_dim=32, num_heads=8, mlp_dim=64,
@@ -173,11 +172,11 @@ def test_int8_artifact_runs_the_int8_gemm_operator():
     nodes = [n for n in fn.program.graph.nodes if n.op == "call_function"
              and "mpt_torch.int8_conv2d_dequant" in str(n.target)]
     assert len(nodes) == len(eligible_convs(model, 1024)) > 10
-    before = int8_conv2d_dequant.launches
+    before = counters["int8.conv_dequant_launches"]
     with torch.no_grad():
         want = q(x).reshape(10, -1)
     np.testing.assert_array_equal(fn(x).numpy(), want.numpy())
-    assert int8_conv2d_dequant.launches == before      # the CPU launches none
+    assert counters["int8.conv_dequant_launches"] == before  # the CPU: none
 
 
 def test_float32_artifact_matches_the_jax_artifact():

@@ -1,7 +1,7 @@
 """The port's ``utils`` against the JAX package's logged figures, on the
 CPU: ``count_macs`` (the reference's torchinfo 'Total mult-adds', which
 the JAX package reproduces), ``model_summary``'s parameter count,
-``StepTimer``, ``device_sync`` and ``trace``."""
+``device_sync`` and ``trace``."""
 
 import json
 
@@ -12,7 +12,7 @@ from multipitch_architectures_tpu_torch.experiments import load_experiment
 from multipitch_architectures_tpu_torch.models import (
     BasicCnnSegmSigmoid, DeepCnnSegmSigmoid, SimpleUNetDoubleSelfAttn)
 from multipitch_architectures_tpu_torch.utils import (
-    StepTimer, count_macs, device_sync, model_summary, plot_matrix, trace)
+    count_macs, device_sync, model_summary, plot_matrix, trace)
 
 SUMMARY_INPUT = (1, 6, 174, 216)   # the reference's summary input, exp180d:233
 
@@ -55,14 +55,8 @@ def test_model_summary_counts():
     assert "Total mult-adds (G):" in s
 
 
-def test_step_timer_and_device_sync():
-    t = StepTimer()                        # syncs: a no-op on the CPU
-    for _ in range(3):
-        with t:
-            torch.ones(4).sum()
-    s = t.summary(warmup=1)
-    assert s["steps"] == 2 and s["mean_s"] >= 0 and len(t.times) == 3
-    assert t.wrap(lambda a: a + 1)(1) == 2 and len(t.times) == 4
+def test_device_sync():
+    """A no-op on the CPU, for the current card and for a tensor."""
     device_sync()
     device_sync(torch.ones(2))
 
