@@ -107,6 +107,12 @@ phase's result on its own line:
       of the float32 peak; then one ``run_experiment`` on
       ``SyntheticCorpus`` (1 epoch) through the test phase: its CSV, its
       prediction files and 150 finite measures;
+   f. the port's conv (``ops/conv.py``), whose data gradient is a forward
+      convolution, at exp180d's two ``upconv4`` shapes, float32 under
+      ``cudnn.deterministic``: two backward passes equal bit for bit, the
+      weight and bias gradients equal to ``nn.Conv2d``'s, the input
+      gradient within 1e-5 (relative L2) of float64; each backward timed
+      beside ``nn.Conv2d``'s;
 9. zoo: one registry configuration per class of the zoo besides the
    SAUnet, at full width and depth, built through ``load_experiment`` with
    the weights that the JAX package's ``model.init`` draws (seeded): CNN:M
@@ -371,6 +377,7 @@ GRAD_FACTOR = 4           # ... or this many times the CPU's own error
 TRAIN_PARAM_ATOL = 1e-6   # beyond the gap that the two gradients explain
 TRAIN_STATS_TOL = 1e-5    # of each BatchNorm statistic's max abs
 RESUME_BATCHES = 4        # batches per epoch of the resume check
+DGRAD_RTOL = 1e-5         # rel L2 of the data gradient, float32 vs float64
 TIMED_STEPS = 20
 # the zoo phase: (registry entry, the paper's name, logged parameter
 # count; tests/test_torch_zoo.py): SAUSnet:XL's log misses its four
@@ -1600,7 +1607,7 @@ def learnable_run(dev, name, lr, files, probe, epochs=2):
                                                    compression=10.0),
                              target_slice=(24, 96), device=dev)
     # learning, not resume, is checked here: cuDNN's fast algorithms (the
-    # deterministic ones cost 3x per step, phase 8e)
+    # deterministic ones cost more per step, phase 8e)
     cfg = TrainConfig(max_epochs=epochs, batch_size=16, initial_lr=lr,
                       loss="bce", es_patience=epochs, scheduler=None,
                       seed=SEED, deterministic=False)
@@ -1704,6 +1711,9 @@ def phase_train(dev, card):
                   f"phase's 3 subsets): {sec:.1f} s; CSV and {len(preds)} "
                   f"prediction files written; {len(measures)} measures "
                   f"finite; framewise f_measure {fw['f_measure']:.4f}")
+
+            # 8f. the data gradient as a forward convolution
+            dgrad_check(dev, card)
         except BaseException:
             proc.kill()
             proc.join()
@@ -1805,6 +1815,64 @@ def resume_check(dev, files, tmp):
           f"max abs at {worst[1]})")
     if not (state_equal and steps_equal and epoch_equal and after_equal):
         raise AssertionError("resume is not exact on the card")
+
+
+def dgrad_check(dev, card):
+    """Phase 8f: the port's conv (``ops/conv.py``) at exp180d's two
+    ``upconv4`` shapes (batch 25, 75 x 216, 15 x 15, 32 -> 16 and 16 ->
+    128 channels), float32 under ``cudnn.deterministic``: its data
+    gradient computed as a forward convolution, two backward passes equal
+    bit for bit in every gradient, the weight and bias gradients equal to
+    ``nn.Conv2d``'s, the input gradient within ``DGRAD_RTOL`` (relative
+    L2) of ``nn.Conv2d``'s in float64; each backward timed beside
+    ``nn.Conv2d``'s."""
+    import torch
+    from torch import nn
+
+    from multipitch_architectures_tpu_torch.ops.conv import Conv2d
+    from multipitch_architectures_tpu_torch.utils import counters
+
+    def grads(m, x, gy):
+        x = x.detach().requires_grad_()
+        return torch.autograd.grad(m(x), (x, m.weight, m.bias), gy)
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    for c_in, c_out in ((32, 16), (16, 128)):
+        torch.manual_seed(SEED)
+        conv = Conv2d(c_in, c_out, (15, 15), padding=(7, 7)).to(dev)
+        plain = nn.Conv2d(c_in, c_out, (15, 15), padding=(7, 7)).to(dev)
+        plain.load_state_dict(conv.state_dict())
+        x = torch.randn(TRAIN_BATCH, c_in, 75, 216, device=dev, generator=gen)
+        gy = torch.randn(TRAIN_BATCH, c_out, 75, 216, device=dev,
+                         generator=gen)
+        with torch.backends.cudnn.flags(enabled=True, deterministic=True,
+                                        benchmark=False, allow_tf32=False):
+            before = counters["conv.dgrad_as_forward"]
+            first, second = grads(conv, x, gy), grads(conv, x, gy)
+            routed = counters["conv.dgrad_as_forward"] - before
+            theirs = grads(plain, x, gy)
+            ms = cuda_ms(lambda: grads(conv, x, gy), reps=5, warmup=1)
+            plain_ms = cuda_ms(lambda: grads(plain, x, gy), reps=5, warmup=1)
+        want = grads(plain.double(), x.double(), gy.double())[0]
+        rel = float((first[0].double() - want).norm() / want.norm())
+        cudnn_rel = float((theirs[0].double() - want).norm() / want.norm())
+        repeat = all(torch.equal(a, b) for a, b in zip(first, second))
+        same_wb = (torch.equal(first[1], theirs[1])
+                   and torch.equal(first[2], theirs[2]))
+        print(f"[train] data gradient as a forward convolution, {c_in} -> "
+              f"{c_out} channels, 15 x 15 at 75 x 216, batch {TRAIN_BATCH}, "
+              f"deterministic: routed {routed} of 2 backward passes; the two "
+              f"{'equal' if repeat else 'DIFFERENT'} bit for bit; weight and "
+              f"bias gradients {'equal' if same_wb else 'DIFFERENT'} to "
+              f"nn.Conv2d's; input gradient rel L2 {rel:.2e} of float64 "
+              f"(<= {DGRAD_RTOL:g}; cuDNN's own {cudnn_rel:.2e}); backward "
+              f"{ms:.2f} ms against nn.Conv2d's {plain_ms:.2f} ms (CUDA "
+              f"events, 5 after 1); {card}")
+        if not (routed == 2 and repeat and same_wb and rel <= DGRAD_RTOL):
+            raise AssertionError(f"the data gradient as a forward "
+                                 f"convolution, {c_in} -> {c_out}: routed "
+                                 f"{routed}, repeat {repeat}, weight and bias "
+                                 f"{same_wb}, rel {rel:.2e}")
 
 
 def registry_step(dev, card):

@@ -15,6 +15,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
+from ..ops.conv import Conv2d
 from .layers import ConvBlock, HarmonicLayerNorm, PitchHead
 
 
@@ -102,9 +103,9 @@ class _StridedCnn(nn.Module):
                                                 **kw))
             c_in = n_ch[i - 1]
         self.conv4 = nn.Sequential(
-            nn.Conv2d(n_ch[2], n_ch[3], (1, 1)), nn.LeakyReLU(a_lrelu),
+            Conv2d(n_ch[2], n_ch[3], (1, 1)), nn.LeakyReLU(a_lrelu),
             nn.Dropout(p_dropout),
-            nn.Conv2d(n_ch[3], 1, (1, n_bins_in // 3 + 1 - n_bins_out)),
+            Conv2d(n_ch[3], 1, (1, n_bins_in // 3 + 1 - n_bins_out)),
             nn.Sigmoid())
 
     def forward(self, x):
@@ -161,8 +162,8 @@ class BasicCnnSegmLogSoftmax(_SegmCnn):
         super().__init__(n_chan_input, n_chan_layers, 1, False, n_bins_in,
                          n_bins_out, a_lrelu, p_dropout)
         last = self.conv4[3]
-        self.conv4[3] = nn.Conv2d(n_chan_layers[3], n_ch_out,
-                                  last.kernel_size)
+        self.conv4[3] = Conv2d(n_chan_layers[3], n_ch_out,
+                               last.kernel_size)
         self.conv4[4] = nn.LogSoftmax(dim=1)
 
 
@@ -182,8 +183,8 @@ class BasicCnnSegmBlankLogSoftmax(_SegmCnn):
                          n_bins_out, a_lrelu, p_dropout)
         last = self.conv4[3]
         self.conv4 = self.conv4[:3]
-        self.conv5a = nn.Conv2d(n_chan_layers[3], n_ch_out, last.kernel_size)
-        self.conv5b = nn.Conv2d(n_chan_layers[3], n_ch_out, (1, 72))
+        self.conv5a = Conv2d(n_chan_layers[3], n_ch_out, last.kernel_size)
+        self.conv5b = Conv2d(n_chan_layers[3], n_ch_out, (1, 72))
 
     def forward(self, x):
         x = self.conv1(self.layernorm(x))

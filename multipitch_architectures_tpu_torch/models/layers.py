@@ -16,6 +16,7 @@ import torch.nn.functional as F
 
 from ..ops.attention import (TorchMultiheadAttention,
                              sinusoidal_positional_encoding)
+from ..ops.conv import Conv2d
 from ..ops.lstm import TorchLSTM
 
 
@@ -72,7 +73,7 @@ class ConvBlock(nn.Sequential):
                  pool_kernel: Optional[Tuple[int, int]] = None,
                  pool_stride: Optional[Tuple[int, int]] = None,
                  pool_padding=(0, 0)):
-        layers = [nn.Conv2d(in_channels, features, kernel, stride, padding),
+        layers = [Conv2d(in_channels, features, kernel, stride, padding),
                   nn.LeakyReLU(a_lrelu)]
         if pool_kernel is not None:
             layers.append(nn.MaxPool2d(pool_kernel, pool_stride or pool_kernel,
@@ -99,7 +100,7 @@ class DoubleConv(nn.Module):
         mid = mid_channels or out_channels
         layers = []
         for c_in, c_out in ((in_channels, mid), (mid, out_channels)):
-            conv = nn.Conv2d(c_in, c_out, kernel, padding=padding)
+            conv = Conv2d(c_in, c_out, kernel, padding=padding)
             if alt_order:
                 layers += [nn.ELU(), nn.BatchNorm2d(c_in, eps=1e-5,
                                                     momentum=0.1),
@@ -111,7 +112,7 @@ class DoubleConv(nn.Module):
             if convdrop is not None:
                 layers.append(nn.Dropout(convdrop))
         self.double_conv = nn.Sequential(*layers)
-        self.resize = (nn.Conv2d(in_channels, out_channels, (1, 1))
+        self.resize = (Conv2d(in_channels, out_channels, (1, 1))
                        if residual else None)
 
     def forward(self, x):
@@ -126,8 +127,8 @@ class SingleConvSELU(nn.Sequential):
 
     def __init__(self, in_channels: int, features: int, kernel=(3, 3),
                  padding=(1, 1)):
-        super().__init__(nn.Conv2d(in_channels, features, kernel,
-                                   padding=padding), nn.SELU())
+        super().__init__(Conv2d(in_channels, features, kernel,
+                                padding=padding), nn.SELU())
 
 
 class TransformerEncLayer(nn.Module):
@@ -241,10 +242,10 @@ def polyphony_head(in_channels: int, mid_channels: int, out_channels: int,
     -> dropout -> conv (2, 3), all unpadded, then a ReLU unless
     ``relu_out`` is false (raw logits). Convs at ``.0`` and ``.4``; on
     the 4 x 13 bottleneck of a window it gives 1 x 1."""
-    layers = [nn.Conv2d(in_channels, mid_channels, (2, 5)),
+    layers = [Conv2d(in_channels, mid_channels, (2, 5)),
               nn.LeakyReLU(a_lrelu), nn.MaxPool2d((2, 5), (1, 2)),
               nn.Dropout(p_dropout),
-              nn.Conv2d(mid_channels, out_channels, (2, 3))]
+              Conv2d(mid_channels, out_channels, (2, 3))]
     return nn.Sequential(*layers, *([nn.ReLU()] if relu_out else []))
 
 
@@ -273,8 +274,8 @@ def pitch_head(in_channels: int, n_chan_layers: Sequence[int],
     conv3 = ConvBlock(n_ch[1], n_ch[2], (context, 1), a_lrelu=a_lrelu,
                       p_dropout=p_dropout)
     conv4 = nn.Sequential(
-        nn.Conv2d(n_ch[2], n_ch[3], (1, 1)), nn.LeakyReLU(a_lrelu),
-        nn.Dropout(p_dropout), nn.Conv2d(n_ch[3], 1, (1, last_kernel)),
+        Conv2d(n_ch[2], n_ch[3], (1, 1)), nn.LeakyReLU(a_lrelu),
+        nn.Dropout(p_dropout), Conv2d(n_ch[3], 1, (1, last_kernel)),
         nn.Sigmoid())
     return {"conv2": conv2, "conv3": conv3, "conv4": conv4}
 

@@ -13,6 +13,7 @@ import torch
 from torch import nn
 
 from ..ops.attention import TorchMultiheadAttention
+from ..ops.conv import Conv2d
 from ..ops.resize import up_concat_pad
 from .layers import (BLSTMTemporalEncLayer, ConvBlock, DoubleConv, HarmonicLayerNorm,
                      PitchHead, SingleConvSELU, TransformerEncLayer,
@@ -478,7 +479,7 @@ class SimpleUNetDoubleSelfAttnTransEnc(_SimpleUNet):
                 time_embed_dim, num_heads, mlp_dim, p_dropout,
                 pos_encoding=pe, attn_mode=attn_mode))
         self.reduction = nn.Sequential(
-            nn.Conv2d(n_chan_layers[1], 1, (1, 1)), nn.Sigmoid())
+            Conv2d(n_chan_layers[1], 1, (1, 1)), nn.Sigmoid())
 
     def _head(self, h):
         h = self.conv2(h).transpose(1, 3)               # (B, F, T, C)
@@ -493,8 +494,8 @@ def _bn_conv_selu(in_channels, features, kernel, padding):
     """The reference's ``Sequential(BatchNorm2d, Conv2d, SELU)``
     (unet_cnns.py:1715-1726): BN at ``.0``, the conv at ``.1``."""
     return nn.Sequential(nn.BatchNorm2d(in_channels, eps=1e-5, momentum=0.1),
-                         nn.Conv2d(in_channels, features, kernel,
-                                   padding=padding), nn.SELU())
+                         Conv2d(in_channels, features, kernel,
+                                padding=padding), nn.SELU())
 
 
 class FreqUNet(nn.Module):
@@ -564,7 +565,7 @@ class FreqUNetBottomStack(FreqUNet):
         super().__init__(n_chan_input, n_chan_layers, n_bins_in, n_bins_out,
                          a_lrelu, p_dropout, scalefac)
         self.bottom = SingleConvSELU(128 // scalefac, 1, (3, 3), (1, 0))
-        self.conv3b = nn.Conv2d(1, 1, (75, 1))
+        self.conv3b = Conv2d(1, 1, (75, 1))
 
     def forward(self, x):
         h, idx = self._down(x)

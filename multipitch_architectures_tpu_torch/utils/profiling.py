@@ -29,6 +29,9 @@ counters = {
     "hcqt.plan_builds": 0,            # CQT plans built (plan cache misses)
     "protocol.batches": 0,            # batches of the windowed protocol
     "protocol.windows": 0,            # windows in them
+    "conv.dgrad_as_forward": 0,       # conv data gradients computed as
+    #                                   forward convolutions (ops/conv.py)
+    "conv.dgrad_fallback": 0,         # convs left on autograd's own path
 }
 
 _NULL = contextlib.nullcontext()
