@@ -17,7 +17,9 @@ metric lives in a file of its own, found by the name that
 - ``portbench/traffic/<mix>.json``: the loop, the laws of lengths and
   arrivals, the sample that the output check compares;
 - ``portbench/metrics/<metric>.py``: a ``read(run)`` that returns the
-  metric, or None where the run has nothing to read;
+  metric, or None where the run has nothing to read; a metric with no
+  file of its own reads with its family's, the name cut at its last dot
+  (``k1_roofline.int8`` with ``k1_roofline.py``);
 - ``portbench/counts/``: operations and bytes, from the configuration's
   shapes.
 """

@@ -3,6 +3,7 @@
 import importlib.util
 import json
 import os
+import sys
 
 import numpy as np
 
@@ -52,13 +53,48 @@ def traffic_file(name, root=ROOT):
 
 
 def metric_reader(name, root=ROOT):
-    """``read`` of ``portbench/metrics/<name>.py``."""
-    path = os.path.join(root, "portbench", "metrics", f"{name}.py")
+    """``read`` of ``portbench/metrics/<name>.py`` or, where there is
+    none, of the reader that the name's family shares, the name cut at
+    its last dot (``frontend_ms_per_audio_s.clips`` reads with
+    ``frontend_ms_per_audio_s.py``)."""
+    stem = name
+    path = os.path.join(root, "portbench", "metrics", f"{stem}.py")
+    while not os.path.exists(path) and "." in stem:
+        stem = stem.rsplit(".", 1)[0]
+        path = os.path.join(root, "portbench", "metrics", f"{stem}.py")
     spec = importlib.util.spec_from_file_location(
-        "portbench_metric_" + name.replace(".", "_").replace("-", "_"), path)
+        "portbench_metric_" + stem.replace(".", "_").replace("-", "_"), path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod.read
+
+
+def part(kind, name, root=ROOT):
+    """The module ``portbench/<kind>/<name>.py`` under ``root``: the plain
+    reference (``kind`` "reference", a ``build(model_cfg)``) or the
+    counts (``kind`` "counts", ``forward_flops`` and
+    ``train_step_flops``) that a configuration names. It is loaded as
+    ``portbench.<kind>.<name>``, so that its relative imports reach the
+    harness's own modules."""
+    full = f"portbench.{kind}.{name}"
+    path = os.path.join(root, "portbench", kind, f"{name}.py")
+    mod = sys.modules.get(full)
+    if mod is not None and os.path.samefile(mod.__file__, path):
+        return mod
+    spec = importlib.util.spec_from_file_location(full, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def reference(cfg, root=ROOT):
+    """The plain reference model of configuration ``cfg``, on the current
+    default device."""
+    return part("reference", cfg["reference"], root).build(cfg["model"])
+
+
+def counts(cfg, root=ROOT):
+    return part("counts", cfg["counts"], root)
 
 
 def forbidden_modules(modules):

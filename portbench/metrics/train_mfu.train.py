@@ -2,14 +2,13 @@
 on the reference's shapes) over its wall time, as a share of the dense
 TF32 peak."""
 
-from portbench import reduce
-from portbench.counts import saunet
+from portbench import common, reduce
 
 
 def read(run):
     if not run.steps:
         return None
     t = run.cfg["train"]
-    flops = saunet.train_step_flops(run.cfg["model"]["args"],
-                                    t["batch_size"], t["context"])
+    flops = common.counts(run.cfg, run.root).train_step_flops(
+        run.cfg["model"]["args"], t["batch_size"], t["context"])
     return reduce.mfu_percent(flops * run.steps, run.window_end)

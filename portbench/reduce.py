@@ -4,9 +4,10 @@ None where the run has nothing to read."""
 
 import math
 
+from . import common
 from .common import FLOAT32_PEAK, PEAKS
-from .counts import cqt, saunet
-from .serve import frames
+from .counts import cqt, int8
+from .serve import frames, served_batches
 
 
 def done(run):
@@ -46,10 +47,27 @@ def percentile(values, q):
 
 
 def serve_flops_per_window(run):
+    """float32 FLOPs of one window, from the configuration's counts."""
     cfg = run.cfg
     g = cfg["serve"]["group"]
-    return saunet.forward_flops(cfg["model"]["args"], g, g,
-                                cfg["frontend"]["context"]) / g
+    return common.counts(cfg, run.root).forward_flops(
+        cfg["model"]["args"], g, g, cfg["frontend"]["context"]) / g
+
+
+def serve_flops(run):
+    """The work of the window's finished requests as float32 FLOPs: the
+    float32 calibration passes at the float32 rate, and every frame
+    served after them by the serving mode (int8 operations weighed by
+    the float32 peak over the int8 one)."""
+    fe = run.cfg["frontend"]
+    cal = served = 0
+    for r in done(run):
+        t = frames(r["audio_s"], fe)
+        computed, reused = run.mode.cal(t)
+        cal += computed
+        served += t - reused
+    flops = serve_flops_per_window(run)
+    return flops * cal + run.mode.window_flops(run, flops) * served
 
 
 def mfu_percent(flops, seconds):
@@ -72,6 +90,21 @@ def k1_roofline(run):
         flops, nbytes = cqt.hcqt_cost(fe, int(round(r["audio_s"] * fe["fs"])))
         bound += max(flops / FLOAT32_PEAK, nbytes / PEAKS["hbm_bytes_per_s"])
     return 100.0 * bound / t
+
+
+def int8_gemm_roofline(run):
+    """The int8 GEMM's least time for the window's int8 batches (each
+    launch's operations at the int8 peak, or its bytes at HBM's rate,
+    whichever is longer) over its device time in the profile, in %."""
+    p = run.profile
+    if p is None:
+        return None
+    t = sum(v for k, v in p["kernels_s"].items() if "int8_gemm_kernel" in k)
+    if not t:
+        return None
+    costs = int8.convs(run.cfg, run.root)
+    return 100.0 * sum(int8.least_seconds(costs, b)
+                       for b in served_batches(run)) / t
 
 
 def idle_percent(run, within=None):

@@ -194,6 +194,8 @@ class SAUnet(nn.Module):
 
 def build(model_cfg):
     """The reference model of a configuration file's ``model`` entry."""
+    if model_cfg["class"] != "simple_u_net_doubleselfattn":
+        raise ValueError(f"no SAUnet reference for {model_cfg['class']!r}")
     args = dict(model_cfg["args"])
     args["n_chan_layers"] = tuple(args["n_chan_layers"])
     return SAUnet(**args)

@@ -24,10 +24,10 @@ class Run:
     """What one run records, for the metric readers."""
 
     def __init__(self, cell, cfg, mix, seed, seconds, trace, device,
-                 start):
+                 start, root=common.ROOT):
         from .trace import Tracer
 
-        self.cell, self.cfg, self.mix = cell, cfg, mix
+        self.cell, self.cfg, self.mix, self.root = cell, cfg, mix, root
         self.seed, self.seconds, self.trace = seed, seconds, trace
         self.device, self.start = device, start
         self.tracer = Tracer(trace, device)
@@ -36,6 +36,7 @@ class Run:
         self.windows_per_step = None
         self.window_start = self.window_end = None
         self.model_ms = None
+        self.followed = None
 
     @property
     def spans(self):
@@ -94,8 +95,8 @@ def run_cell(name, seed, seconds, trace, root=common.ROOT, start=None,
              require_card=True, control=False, overrides=None):
     """One run: (result dict, its ``Run``). ``require_card=False`` runs
     on the CPU (the tests); ``control=True`` puts the reference, computed
-    in TF32, in the program's place; ``overrides`` replace keys of the
-    traffic mix (the rate sweep)."""
+    in the precision below the configuration's, in the program's place;
+    ``overrides`` replace keys of the traffic mix (the rate sweep)."""
     start = time.perf_counter() if start is None else start
     import torch
 
@@ -112,17 +113,28 @@ def run_cell(name, seed, seconds, trace, root=common.ROOT, start=None,
         device = torch.device("cpu")
     from multipitch_architectures_tpu_torch import set_f32_parity
 
-    if cfg["precision"] != "float32":
-        raise SystemExit(f"unsupported precision {cfg['precision']!r}")
+    if mix["kind"] == "serve":
+        from . import serve as kind
+
+        precisions = kind.MODES
+    elif mix["kind"] == "train":
+        from . import train as kind
+
+        precisions = ("float32",)
+    else:
+        raise SystemExit(f"unknown traffic kind {mix['kind']!r}")
+    if cfg["precision"] not in precisions:
+        raise SystemExit(f"unsupported precision {cfg['precision']!r} for "
+                         f"{mix['kind']!r} traffic")
+    # float32 with TF32 off in every mode: an int8 model's float32 rest too
     set_f32_parity()
     cuda = device.type == "cuda"
-    run = Run(cell, cfg, mix, seed, seconds, bool(trace), device, start)
+    run = Run(cell, cfg, mix, seed, seconds, bool(trace), device, start,
+              root)
     if cuda:
         torch.cuda.reset_peak_memory_stats()
 
     if mix["kind"] == "serve":
-        from . import serve as kind
-
         prog, pool, sd = kind.setup(run, control)
         hooks = []
         if trace and cuda and not control:
@@ -134,14 +146,10 @@ def run_cell(name, seed, seconds, trace, root=common.ROOT, start=None,
             torch.cuda.synchronize()
             run.model_ms = [a.elapsed_time(b) for a, b in pairs]
         state = (sd, pool, outs)
-    elif mix["kind"] == "train":
-        from . import train as kind
-
+    else:
         sd, files, readings = kind.setup_and_window(run, control)
         prog = None
         state = (sd, files, readings)
-    else:
-        raise SystemExit(f"unknown traffic kind {mix['kind']!r}")
 
     peak = torch.cuda.max_memory_allocated(device) if cuda else 0
     run.tracer.reduce()
@@ -161,6 +169,10 @@ def run_cell(name, seed, seconds, trace, root=common.ROOT, start=None,
         breakdown = {"device_ops": run.profile["device_ops"],
                      "idle_gaps": run.profile["idle_gaps"]}
     attempted, failed = kind.attempted(run), kind.failed(run)
+    if mix["kind"] == "serve":
+        # one request served again and followed stage by stage, while the
+        # program is held
+        run.followed = kind.follow(run, prog, *state)
 
     # the program's state goes before the reference runs
     if prog is not None:

@@ -20,8 +20,9 @@ def card():
 
 
 @pytest.fixture
-def tiny_root(tmp_path):
-    from .tiny import make_root
+def tiny_root(tmp_path, monkeypatch):
+    from .tiny import count_cpu_launches, make_root
 
     torch.set_num_threads(2)
+    count_cpu_launches(monkeypatch)
     return make_root(str(tmp_path))

@@ -21,7 +21,7 @@ def run(root, cell, trace=0):
 
 
 @pytest.mark.parametrize("cell", ["exp180e-f32.corpus", "exp180e-f32.clips",
-                                  "exp180d-f32.train"])
+                                  "exp180d-f32.train", "exp180e-int8.corpus"])
 def test_sound_runs_are_correct(tiny_root, cell):
     result = run(tiny_root, cell, trace=1)
     assert result["correct"], result["checks"]
@@ -35,8 +35,23 @@ def test_sound_runs_are_correct(tiny_root, cell):
     ("exp180d-f32.train", "frozen_step", 0),
     ("exp180d-f32.train", "half_batch", 0),
     ("exp180d-f32.train", "frozen_step", SETUP_STEPS),
-    ("exp180d-f32.train", "half_batch", SETUP_STEPS)])
+    ("exp180d-f32.train", "half_batch", SETUP_STEPS),
+    ("exp180e-int8.corpus", "altered_answer", 0),
+    ("exp180e-int8.corpus", "weights_4bit", 0),
+    ("exp180e-int8.corpus", "first_scales_reused", 0),
+    ("exp180e-int8.corpus", "dynamic_scales", 0),
+    ("exp180e-int8.corpus", "float32_served", 0)])
 def test_a_planted_fault_is_caught(tiny_root, cell, fault, after):
     with planted(fault, after):
         result = run(tiny_root, cell)
     assert not result["correct"], result["checks"]
+
+
+def test_the_int8_control_is_not_correct(tiny_root):
+    """The reference at 4 bits in the program's place."""
+    result = run_cell("exp180e-int8.corpus", SEED, 1.0, 0, root=tiny_root,
+                      require_card=False, control=True)[0]
+    assert not result["correct"], result["checks"]
+    # by the output's gaps, not only by the stages it has none of
+    c = result["checks"]["int8_pred_mean_abs"]
+    assert c["value"] > c["limit"]

@@ -16,6 +16,7 @@ from portbench.run import run_cell
 root = make_root(tempfile.mkdtemp())
 run_cell("exp180e-f32.clips", 5, 1.0, 0, root=root, require_card=False)
 run_cell("exp180d-f32.train", 5, 1.0, 1, root=root, require_card=False)
+run_cell("exp180e-int8.corpus", 5, 1.0, 1, root=root, require_card=False)
 print(json.dumps(sorted(sys.modules)))
 """
 
@@ -23,6 +24,7 @@ REFERENCE_IMPORT = r"""
 import json, sys
 import portbench.reference.frontend, portbench.reference.protocol
 import portbench.reference.saunet, portbench.reference.train
+import portbench.reference.quant, portbench.counts.int8
 import portbench.counts.saunet, portbench.counts.cqt, portbench.traffic
 print(json.dumps(sorted(sys.modules)))
 """

@@ -53,6 +53,26 @@ def test_new_files_are_found_by_name(tiny_root):
     assert set(e2e["metrics"]) == {"request_p90_ms", "setup_s"}
 
 
+def test_a_metric_without_a_file_reads_with_its_familys(tmp_path):
+    """``k1_roofline.int8`` has no file of its own: it reads with
+    ``k1_roofline.py``; a file of the metric's own name comes first."""
+    from portbench.common import metric_reader
+
+    d = tmp_path / "portbench" / "metrics"
+    d.mkdir(parents=True)
+    (d / "k1_roofline.py").write_text("def read(run):\n    return 1.0\n")
+    (d / "k1_roofline.clips.py").write_text(
+        "def read(run):\n    return 2.0\n")
+    root = str(tmp_path)
+    assert metric_reader("k1_roofline.int8", root)(None) == 1.0
+    assert metric_reader("k1_roofline.int8.long", root)(None) == 1.0
+    assert metric_reader("k1_roofline.clips", root)(None) == 2.0
+    with open(os.path.join(ROOT, "BENCHMARK.json")) as f:
+        bench = json.load(f)
+    for m in bench["end_to_end"] + bench["per_layer"]:
+        assert callable(metric_reader(m["name"]))
+
+
 def test_without_a_card_the_command_prints_no_result():
     out = subprocess.run(
         [sys.executable, "-m", "portbench", "--workload",

@@ -19,10 +19,9 @@ import time
 import numpy as np
 import torch
 
-from . import inputs, traffic, weights
+from . import common, inputs, traffic, weights
 from .common import stream
 from .reference import train as reference
-from .reference.saunet import build as build_reference
 from .serve import tf32
 
 
@@ -167,7 +166,7 @@ def setup_and_window(run, control=False):
     cfg, mix, dev = run.cfg, run.mix, run.device
     files = corpus(run)
     with torch.device("meta"):
-        ref = build_reference(cfg["model"])
+        ref = common.reference(cfg, run.root)
     sd = weights.draw(ref, run.seed, dev, cfg["weights_law"])
     if control:
         # the window's last step: the first after set-up
@@ -188,7 +187,8 @@ def setup_and_window(run, control=False):
 
     t, m = cfg["train"], cfg["model"]
     with torch.device(dev):
-        net = build_model(m["class"], m["args"], attn_mode=m["attn_mode"])
+        net = build_model(m["class"], m["args"],
+                          **{k: m[k] for k in ("attn_mode",) if k in m})
     net.load_state_dict(sd, strict=True)
     tcfg = TrainConfig(
         max_epochs=t["max_epochs"], batch_size=t["batch_size"],
@@ -240,7 +240,7 @@ def reference_steps(run, sd, ts, count):
     step as the window's)."""
     cfg, dev = run.cfg, run.device
     t = cfg["train"]
-    model = build_reference(cfg["model"]).to(dev)
+    model = common.reference(cfg, run.root).to(dev)
     model.load_state_dict(sd)
     params = dict(model.named_parameters())
     adamw = reference.AdamW(params, recipe(cfg))
@@ -286,7 +286,7 @@ def replay(run, sd, ts, last):
     gradients, parameter change)."""
     cfg, dev = run.cfg, run.device
     t = cfg["train"]
-    model = build_reference(cfg["model"]).to(dev)
+    model = common.reference(cfg, run.root).to(dev)
     model.load_state_dict(sd)
     params = dict(model.named_parameters())
     pre = last["pre"]

@@ -15,7 +15,10 @@ Two laws, named by a configuration's ``weights_law``:
   step saturates every output of SAUnet:L on some seeds, and the loss's
   clip then stops every gradient: training that no user runs.
 
-Both: norms unit scale and zero shift; BatchNorm statistics (0, 1).
+Both: norms unit scale and zero shift; BatchNorm statistics (0, 1);
+LSTMs PyTorch's default, every weight and bias U(±1 / sqrt(hidden)),
+with zero biases under ``lecun_normal`` (flax's LSTM cell's). An
+attention is any module that holds a packed ``in_proj_weight``.
 """
 
 import math
@@ -24,7 +27,6 @@ import torch
 from torch import nn
 
 from .common import stream_seed
-from .reference.saunet import MultiheadAttention
 
 LAWS = ("he_uniform", "lecun_normal")
 TRUNC_STD = 0.87962566103423978     # std of a unit normal cut at ±2
@@ -41,7 +43,7 @@ def _rules(model, law):
         def name(p):
             return f"{prefix}.{p}" if prefix else p
 
-        if isinstance(m, MultiheadAttention):
+        if getattr(m, "in_proj_weight", None) is not None:
             e = m.in_proj_weight.shape[1]
             out[name("in_proj_weight")] = ("uniform",
                                            math.sqrt(6.0 / (e + 3 * e)))
@@ -63,6 +65,12 @@ def _rules(model, law):
                 out[name("bias")] = ("const", 0.0) \
                     if law == "lecun_normal" or prefix in xavier \
                     else ("uniform", 1.0 / math.sqrt(fan_in))
+        elif isinstance(m, nn.LSTM):
+            bound = 1.0 / math.sqrt(m.hidden_size)
+            for p, _ in m.named_parameters(recurse=False):
+                out[name(p)] = ("const", 0.0) \
+                    if law == "lecun_normal" and p.startswith("bias") \
+                    else ("uniform", bound)
         elif isinstance(m, (nn.LayerNorm, nn.BatchNorm2d)):
             out[name("weight")] = ("const", 1.0)
             out[name("bias")] = ("const", 0.0)
