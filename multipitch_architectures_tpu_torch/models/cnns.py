@@ -16,6 +16,7 @@ import torch
 from torch import nn
 
 from ..ops.conv import Conv2d
+from ..utils.profiling import span
 from .layers import ConvBlock, HarmonicLayerNorm, PitchHead
 
 
@@ -35,7 +36,10 @@ class _SegmCnn(nn.Module):
     blocks (``prefilt_list.{i}``), each with an identity shortcut when
     ``residual``; then the pitch head ``conv2``..``conv4``. Keys are the
     reference's: ``layernorm``, ``conv1.0``, ``prefilt_list.{i}.0``,
-    ``conv2.0`` .. ``conv4.3``."""
+    ``conv2.0`` .. ``conv4.3``.
+
+    Spans ``cnn.prefilter`` (the LayerNorm and the prefilter stack) and
+    ``cnn.head`` (``conv2``..``conv4``)."""
 
     def __init__(self, n_chan_input, n_chan_layers, n_prefilt_layers,
                  residual, n_bins_in, n_bins_out, a_lrelu, p_dropout):
@@ -51,11 +55,13 @@ class _SegmCnn(nn.Module):
                   p_dropout).attach(self)
 
     def forward(self, x):
-        x = self.conv1(self.layernorm(x))
-        for block in self.prefilt_list:
-            h = block(x)
-            x = x + h if self.residual else h
-        return self.conv4(self.conv3(self.conv2(x)))
+        with span("cnn.prefilter"):
+            x = self.conv1(self.layernorm(x))
+            for block in self.prefilt_list:
+                h = block(x)
+                x = x + h if self.residual else h
+        with span("cnn.head"):
+            return self.conv4(self.conv3(self.conv2(x)))
 
 
 class BasicCnnSegmSigmoid(_SegmCnn):
